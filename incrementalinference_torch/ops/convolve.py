@@ -1,0 +1,298 @@
+"""Chapman-Kolmogorov approximate convolution — batched Gauss-Newton.
+
+Counterpart of ``incrementalinference/jl_tpu/ops/convolve.py``.  All N
+particles solve at once: a damped Gauss-Newton in tangent coordinates with
+Jacobians from ``torch.func.jacfwd`` under ``torch.func.vmap`` over the
+particle axis.  Models that declare ``linear_residual`` take the
+closed-form branch (one exact step); the rest run the Levenberg-Marquardt
+accept/reject loop.  Entropy inflation is uniform tangent noise re-solved
+``inflate_cycles`` times; multihypothesis partitions are masks
+(ops/hypo.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from .. import keys as _keys
+from ..beliefs import spread_estimate
+from ..manifolds import Manifold
+from .hypo import build_masks, draw_hypotheses, parse_multihypo
+
+__all__ = ["batched_gauss_newton", "add_entropy", "ConvSpec",
+           "make_conv_spec", "null_surplus_map", "static_dim_mask",
+           "eval_factor_core", "eval_factor"]
+
+
+def _free_mask(dof: int, partial_dims, device) -> torch.Tensor:
+    free = torch.zeros((dof,), dtype=torch.bool, device=device)
+    if partial_dims is None:
+        return ~free
+    free[list(partial_dims)] = True
+    return free
+
+
+def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
+                         others: Tuple[torch.Tensor, ...], x0: torch.Tensor,
+                         sf_slot: int, iters: int = 25,
+                         damping: float = 1e-6,
+                         partial_dims: Optional[Tuple[int, ...]] = None,
+                         linear: bool = False) -> torch.Tensor:
+    """For every particle i, minimise ||residual(meas_i, ..., x, ...)||²
+    over x in argument slot ``sf_slot``.
+
+    meas (n, zdim); others: tuple of (n, point_dim_k); x0 (n, point_dim).
+    ``linear``: one closed-form GN step (exact for affine residuals).
+    Otherwise an LM loop: a step is kept only when finite and not worse;
+    rejection raises the damping ×10 (≤ 1e8), acceptance lowers it ÷3
+    (≥ ``damping``).  ``partial_dims`` pins all other tangent dims."""
+    dof = manifold.dof
+    dt, dev = x0.dtype, x0.device
+    free = _free_mask(dof, partial_dims, dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    eye = torch.eye(dof, dtype=dt, device=dev)
+    z = torch.zeros((x0.shape[0], dof), dtype=dt, device=dev)
+
+    def res(X, x, meas_i, *others_i):
+        X = torch.where(free, X, zero)
+        pts = list(others_i)
+        pts.insert(sf_slot, manifold.exp(x, X))
+        return model.residual(meas_i, *pts)
+
+    jac = vmap(jacfwd(res, argnums=0))
+    resv = vmap(res)
+
+    def gn_step(x, lam):
+        r0 = resv(z, x, meas, *others)                       # (n, resdim)
+        J = jac(z, x, meas, *others)                         # (n, res, dof)
+        Jt = J.transpose(-1, -2)
+        JtJ = Jt @ J + lam[:, None, None] * eye
+        step = torch.linalg.solve(JtJ, (Jt @ r0[..., None]))[..., 0]
+        step = torch.where(free, step, zero)
+        return manifold.exp(x, -step), r0
+
+    lam0 = torch.full((x0.shape[0],), damping, dtype=dt, device=dev)
+    if linear:
+        return gn_step(x0, lam0)[0]
+
+    x, lam = x0, lam0
+    for _ in range(iters):
+        x_new, r0 = gn_step(x, lam)
+        c0 = torch.sum(r0 * r0, dim=-1)
+        r1 = resv(z, x_new, meas, *others)
+        c1 = torch.sum(r1 * r1, dim=-1)
+        ok = torch.isfinite(c1) & (c1 <= c0)
+        x = torch.where(ok[:, None], x_new, x)
+        lam = torch.where(ok, torch.clamp(lam / 3.0, min=damping),
+                          torch.clamp(lam * 10.0, max=1e8))
+    return x
+
+
+def add_entropy(manifold: Manifold, points: torch.Tensor, key: int,
+                spread, partial_dims: Optional[Tuple[int, ...]] = None):
+    """Uniform tangent perturbation X_d ~ spread·U(-0.5, 0.5) (reference
+    addEntropyOnManifold!)."""
+    n, dof = points.shape[0], manifold.dof
+    u = torch.rand((n, dof), generator=_keys.generator(key, points.device),
+                   device=points.device, dtype=points.dtype)
+    noise = spread * (u - 0.5)
+    if partial_dims is not None:
+        noise = torch.where(_free_mask(dof, partial_dims, points.device),
+                            noise, torch.zeros_like(noise))
+    return manifold.exp(points, noise)
+
+
+def _overlay_partial(base: torch.Tensor, sampled: torch.Tensor,
+                     partial_dims: Tuple[int, ...]) -> torch.Tensor:
+    """Overlay sampled coords onto ``partial_dims`` of existing points
+    (coordinate manifolds, as the reference's setPointPartial!)."""
+    out = base.clone()
+    out[:, list(partial_dims)] = sampled[:, :len(partial_dims)]
+    return out
+
+
+class ConvSpec:
+    """Static (hashable) convolution plan for one factor ⊗ solve target."""
+
+    def __init__(self, is_prior, sfidx, nvars, partial_dims, multihypo,
+                 nullhypo, iters, cycles, inflation, spread_nh, damping,
+                 linear=False):
+        self.is_prior = is_prior
+        self.sfidx = sfidx
+        self.nvars = nvars
+        self.partial_dims = partial_dims
+        self.multihypo = multihypo
+        self.nullhypo = float(nullhypo)
+        self.iters = iters
+        self.cycles = cycles
+        self.inflation = float(inflation)
+        self.spread_nh = float(spread_nh)
+        self.damping = float(damping)
+        self.linear = bool(linear)
+
+    def _key(self):
+        return (self.is_prior, self.sfidx, self.nvars, self.partial_dims,
+                self.multihypo, self.nullhypo, self.iters, self.cycles,
+                self.inflation, self.spread_nh, self.damping, self.linear)
+
+    def __eq__(self, other):
+        return isinstance(other, ConvSpec) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+
+def make_conv_spec(fg, factor, solvefor: str, inflate: bool = True,
+                   null_surplus: float = 0.0) -> ConvSpec:
+    """The plan the JAX package builds: a fully constrained linear relative
+    solves in closed form from any start, so its inflate/re-solve cycles
+    collapse to one cycle without entropy (same particles)."""
+    params = fg.params
+    model = factor.model
+    linear = getattr(model, "linear_residual", False)
+    quasi = getattr(model, "quasi_linear_residual", False)
+    nullhypo = max(factor.nullhypo, float(null_surplus))
+    closed_form = (linear and not factor.is_prior
+                   and factor.multihypo is None and nullhypo == 0.0
+                   and getattr(model, "partial", None) is None)
+    return ConvSpec(
+        is_prior=factor.is_prior,
+        sfidx=factor.variables.index(solvefor),
+        nvars=len(factor.variables),
+        partial_dims=getattr(model, "partial", None),
+        multihypo=factor.multihypo,
+        nullhypo=nullhypo,
+        iters=3 if linear else (8 if quasi else params.conv_iters),
+        cycles=1 if closed_form else
+        (params.inflate_cycles if inflate else 1),
+        inflation=0.0 if closed_form else
+        (params.inflation if inflate else 0.0),
+        spread_nh=params.spread_nh,
+        damping=params.conv_damping,
+        linear=linear,
+    )
+
+
+def null_surplus_map(params, factors) -> dict:
+    """Per-factor nullSurplus boost at one proposal target: when any factor
+    there is multihypo, every relative non-multihypo sibling proposes with
+    ``nullhypo >= params.null_surplus_add``."""
+    if not any(f.is_multihypo for f in factors):
+        return {f.label: 0.0 for f in factors}
+    return {f.label: (params.null_surplus_add
+                      if (not f.is_prior and not f.is_multihypo) else 0.0)
+            for f in factors}
+
+
+def static_dim_mask(manifold: Manifold, partial_dims) -> Tuple[bool, ...]:
+    if partial_dims is None:
+        return tuple([True] * manifold.dof)
+    return tuple(i in set(partial_dims) for i in range(manifold.dof))
+
+
+def eval_factor_core(manifold: Manifold, model, key: int,
+                     var_points: Tuple[torch.Tensor, ...],
+                     spec: ConvSpec) -> torch.Tensor:
+    """Proposal particles for the solve target (reference evalFactor →
+    evalPotentialSpecific); ``var_points`` share one particle count."""
+    partial_dims = spec.partial_dims
+    sfidx, nvars = spec.sfidx, spec.nvars
+    x_cur = var_points[sfidx]
+    maxlen, dev = x_cur.shape[0], x_cur.device
+    k_hypo, k_meas, k_null, k_inflate = _keys.split(key, 4)
+
+    if spec.is_prior:
+        pts = model.sample_points(_keys.generator(k_meas, dev), maxlen,
+                                  manifold)
+        if partial_dims is not None:
+            pts = _overlay_partial(x_cur, pts, partial_dims)
+        if spec.nullhypo > 0.0:
+            mh = draw_hypotheses(k_hypo, maxlen, nvars, None, spec.nullhypo,
+                                 dev)
+            spread = spec.spread_nh * spread_estimate(manifold, x_cur, x_cur)
+            nulled = add_entropy(manifold, x_cur, k_null, spread,
+                                 partial_dims)
+            pts = torch.where((mh == 0)[:, None], nulled, pts)
+        return pts
+
+    mhidx = draw_hypotheses(k_hypo, maxlen, nvars, spec.multihypo,
+                            spec.nullhypo, dev)
+    masks = build_masks(mhidx, sfidx, nvars, spec.multihypo)
+    meas = model.sample(_keys.generator(k_meas, dev), maxlen)
+
+    if masks.uncertain_slot is None:
+        others = tuple(var_points[i] for i in range(nvars) if i != sfidx)
+        sf_slot = sfidx
+    else:
+        # the selected hypothesis variable per particle fills the uncertain
+        # slot; only uncertain candidates stack (they share a manifold)
+        _, uncertain, _ = parse_multihypo(spec.multihypo)
+        cand = torch.stack([var_points[i] for i in uncertain])
+        lookup = [0] * nvars
+        for pos, i in enumerate(uncertain):
+            lookup[i] = pos
+        gidx = torch.tensor(lookup, device=dev)[masks.gather_idx]
+        gathered = cand[gidx, torch.arange(maxlen, device=dev)]
+        mech_points = []
+        for slot, fvidx in enumerate(masks.mech_vars):
+            if slot == masks.uncertain_slot and fvidx != sfidx:
+                mech_points.append(gathered)
+            else:
+                mech_points.append(var_points[fvidx])
+        sf_slot = masks.mech_vars.index(sfidx)
+        others = tuple(p for i, p in enumerate(mech_points) if i != sf_slot)
+
+    other_cloud = x_cur
+    if others and others[0].shape[-1] == x_cur.shape[-1]:
+        other_cloud = others[0]
+    base_spread = spread_estimate(manifold, x_cur, other_cloud)
+
+    x, kc = x_cur, k_inflate
+    for _ in range(spec.cycles):
+        kc, k_e = _keys.split(kc, 2)
+        if spec.inflation > 0.0:
+            x = add_entropy(manifold, x, k_e, spec.inflation * base_spread,
+                            partial_dims)
+        solved = batched_gauss_newton(
+            manifold, model, meas, others, x, sf_slot, iters=spec.iters,
+            damping=spec.damping, partial_dims=partial_dims,
+            linear=spec.linear)
+        x = torch.where(masks.solve_mask[:, None], solved, x)
+
+    if spec.nullhypo > 0.0 or spec.multihypo is not None:
+        inactive = masks.null_mask | masks.snap_mask
+        nulled = add_entropy(manifold, x_cur, k_null,
+                             spec.spread_nh * base_spread, partial_dims)
+        x = torch.where(inactive[:, None], nulled, x)
+    return x
+
+
+def _tile_to(p: torch.Tensor, maxlen: int) -> torch.Tensor:
+    if p.shape[0] == maxlen:
+        return p
+    if p.shape[0] < maxlen:
+        reps = -(-maxlen // p.shape[0])
+        return p.repeat(reps, 1)[:maxlen]
+    return p[:maxlen]
+
+
+def eval_factor(fg, factor, solvefor: str, key: int | None = None,
+                solve_key: str = "default", n: int | None = None,
+                inflate: bool = True):
+    """Proposal particles for ``solvefor`` through ``factor`` (reference
+    evalFactor).  Returns (points (n, point_dim), dim_mask (dof,) bool)."""
+    if isinstance(factor, str):
+        factor = fg.factor(factor)
+    manifold = fg.var(solvefor).manifold
+    key = key if key is not None else fg.next_key()
+    var_points = [fg.points(lbl, solve_key) for lbl in factor.variables]
+    maxlen = max([n or fg.params.N] + [p.shape[0] for p in var_points])
+    var_points = tuple(_tile_to(p, maxlen) for p in var_points)
+    spec = make_conv_spec(fg, factor, solvefor, inflate=inflate)
+    pts = eval_factor_core(manifold, factor.model, key, var_points, spec)
+    dim_mask = torch.tensor(static_dim_mask(manifold, spec.partial_dims),
+                            device=pts.device)
+    return pts, dim_mask

@@ -1,0 +1,209 @@
+"""Row-logsumexp of the pair-product weight matrix: CUDA kernel and plain
+version.
+
+Counterpart of ``incrementalinference/jl_tpu/ops/kernels/pallas_product.py``.
+The belief-product cascade needs, for every kernel i of mixture A, the
+log-partition ``log Σ_j exp(logW_ij)`` over mixture B's kernels, with
+
+    logW_ij = -0.5 (a2_i + Σ_d iva_id·μB_jd² − 2 Σ_d ivmuA_id·μB_jd).
+
+At N = 50k the (Na, Nb) matrix would be 10 GB, so the kernel
+(``csrc/row_lse.cu``, CUDA C++ for ``sm_90a``) streams B through shared
+memory with an online (max, sum-exp) and never builds it.
+
+- :func:`row_logsumexp` is the wrapper.  For a CUDA tensor it launches the
+  kernel or raises; for a CPU tensor it takes :func:`row_logsumexp_plain`.
+  There is no fallback from one to the other.
+- The kernel is built with ``nvcc`` at first use into ``build/`` beside this
+  file (listed in ``.gitignore``) and bound with ctypes.
+- ``counts["launches"]`` counts kernel launches and nothing else;
+  ``counts["calls"]`` counts every call of the wrapper, on any device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+__all__ = ["row_logsumexp", "row_logsumexp_plain", "pair_row_logsumexp",
+           "pair_row_terms", "build", "counts", "reset_counts", "MAX_DOF"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "csrc", "row_lse.cu")
+_SO = os.path.join(_HERE, "build", "librow_lse.so")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: the kernel holds dof in registers, instantiated for 1..MAX_DOF
+MAX_DOF = 8
+
+counts = {"launches": 0, "calls": 0}
+_LOCK = threading.Lock()
+_LIB = None
+#: seconds the last nvcc build took (None: loaded an existing build)
+build_seconds = None
+
+
+def reset_counts() -> None:
+    counts["launches"] = 0
+    counts["calls"] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the row_logsumexp CUDA kernel is "
+                       "built from csrc/row_lse.cu at first use")
+
+
+def build(verbose: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/row_lse.cu`` (if the build is missing or older than
+    the source) and load it."""
+    global _LIB, build_seconds
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        if (not os.path.exists(_SO)
+                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+            os.makedirs(os.path.dirname(_SO), exist_ok=True)
+            tmp = f"{_SO}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *_NVCC_FLAGS]
+            if verbose:
+                cmd.append("-Xptxas=-v")
+            t0 = time.time()
+            r = subprocess.run([*cmd, "-o", tmp, _SRC], capture_output=True,
+                               text=True, timeout=600)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{r.stderr}")
+            if verbose and r.stderr:
+                print(r.stderr.strip())
+            os.replace(tmp, _SO)
+            build_seconds = time.time() - t0
+        lib = ctypes.CDLL(_SO)
+        lib.row_lse_launch.restype = ctypes.c_int
+        lib.row_lse_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.row_lse_rows_per_block.restype = ctypes.c_int
+        lib.row_lse_tile_cols.restype = ctypes.c_int
+        _LIB = lib
+        return lib
+
+
+def _check(a2, iva, ivmuA, muB):
+    for name, t in (("a2", a2), ("iva", iva), ("ivmuA", ivmuA),
+                    ("muB", muB)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != a2.device:
+            raise ValueError(f"{name} is on {t.device}, a2 on {a2.device}")
+    na, nb = a2.shape[0], muB.shape[0]
+    if a2.dim() != 1 or muB.dim() != 2:
+        raise ValueError("a2 must be (Na,) and muB (Nb, dof)")
+    dof = muB.shape[1]
+    if iva.shape != (na, dof) or ivmuA.shape != (na, dof):
+        raise ValueError(f"iva/ivmuA must be ({na}, {dof}); got "
+                         f"{tuple(iva.shape)}, {tuple(ivmuA.shape)}")
+    if na == 0 or nb == 0:
+        raise ValueError("empty mixture")
+    return na, nb, dof
+
+
+def row_logsumexp_plain(a2, iva, ivmuA, muB,
+                        max_elems: int = 1 << 26) -> torch.Tensor:
+    """The same function in plain PyTorch: a logsumexp over column blocks
+    of the expanded logW, combined with the kernel's (max, sum) rule and
+    the same 1e-30 floor on the sum."""
+    na, nb, _ = _check(a2, iva, ivmuA, muB)
+    cb = max(1, min(nb, max_elems // max(na, 1)))
+    ms, ss = [], []
+    for j in range(0, nb, cb):
+        b = muB[j:j + cb]
+        logw = -0.5 * (a2[:, None] + iva @ (b * b).T - 2.0 * (ivmuA @ b.T))
+        m = torch.max(logw, dim=1).values
+        ms.append(m)
+        ss.append(torch.sum(torch.exp(logw - m[:, None]), dim=1))
+    m_all = torch.stack(ms)                                   # (blocks, Na)
+    mx = torch.max(m_all, dim=0).values
+    s = torch.sum(torch.stack(ss) * torch.exp(m_all - mx), dim=0)
+    return mx + torch.log(torch.clamp(s, min=1e-30))
+
+
+def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
+    na, nb, dof = _check(a2, iva, ivmuA, muB)
+    if dof > MAX_DOF:
+        raise ValueError(f"row_logsumexp kernel supports dof <= {MAX_DOF}, "
+                         f"got {dof}")
+    for name, t in (("a2", a2), ("iva", iva), ("ivmuA", ivmuA),
+                    ("muB", muB)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = build()
+    rows_per_block = lib.row_lse_rows_per_block()
+    tn = lib.row_lse_tile_cols()
+    # split the columns across blockIdx.y until there are ~4 blocks per SM
+    # slot set (8 resident blocks x SMs), keeping whole tiles per split
+    sms = torch.cuda.get_device_properties(a2.device).multi_processor_count
+    row_blocks = -(-na // rows_per_block)
+    tiles = -(-nb // tn)
+    splits = max(1, min(tiles, -(-(4 * 8 * sms) // row_blocks)))
+    cols_per_split = -(-tiles // splits) * tn
+    splits = -(-nb // cols_per_split)
+    part_m = torch.empty((splits, na), dtype=torch.float32,
+                         device=a2.device)
+    part_s = torch.empty_like(part_m)
+    out = torch.empty((na,), dtype=torch.float32, device=a2.device)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    rc = lib.row_lse_launch(a2.data_ptr(), iva.data_ptr(), ivmuA.data_ptr(),
+                            muB.data_ptr(), part_m.data_ptr(),
+                            part_s.data_ptr(), out.data_ptr(), na, nb, dof,
+                            splits, cols_per_split, stream)
+    if rc != 0:
+        raise RuntimeError(f"row_logsumexp kernel launch failed: CUDA error "
+                           f"{rc}")
+    counts["launches"] += 1
+    return out
+
+
+def row_logsumexp(a2, iva, ivmuA, muB) -> torch.Tensor:
+    """Row-logsumexp of logW = -0.5(a2 + iva·muB²ᵀ − 2 ivmuA·muBᵀ).
+
+    a2 (Na,), iva and ivmuA (Na, dof), muB (Nb, dof), float32 on one device.
+    A CUDA input runs the kernel (or raises); a CPU input the plain
+    version."""
+    counts["calls"] += 1
+    if a2.device.type == "cuda":
+        return _row_logsumexp_cuda(a2, iva, ivmuA, muB)
+    if a2.device.type != "cpu":
+        raise ValueError(f"row_logsumexp: unsupported device {a2.device}")
+    return row_logsumexp_plain(a2, iva, ivmuA, muB)
+
+
+def pair_row_terms(muA, precA, muB, precB):
+    """(a2, ivar, ivar⊙muA) of the pair-product weights.  Like the
+    reference, only ``precB[0]`` is read: in the cascade B's precisions
+    are one row broadcast over its kernels."""
+    pB0 = precB[0]
+    both = (precA > 0) & (pB0[None, :] > 0)
+    ivar = torch.where(both, precA * pB0 / torch.clamp(precA + pB0,
+                                                      min=1e-30),
+                       torch.zeros((), dtype=precA.dtype,
+                                   device=precA.device))
+    a2 = torch.sum(ivar * muA * muA, dim=-1)
+    return a2, ivar, ivar * muA
+
+
+def pair_row_logsumexp(muA, precA, muB, precB) -> torch.Tensor:
+    """Row log-partitions of the pair-product weights (inputs as in
+    ops/product.pair_product_tangent)."""
+    a2, ivar, ivmuA = pair_row_terms(muA, precA, muB, precB)
+    return row_logsumexp(a2.contiguous(), ivar.contiguous(),
+                         ivmuA.contiguous(), muB.contiguous())

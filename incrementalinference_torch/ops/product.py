@@ -1,0 +1,270 @@
+"""Product of KDE beliefs on a manifold — exact cascaded-pair products.
+
+Counterpart of ``incrementalinference/jl_tpu/ops/product.py``.  Each belief
+is a Gaussian mixture with one diagonal bandwidth per density; the product
+of two mixtures is a mixture whose Na×Nb component weights are closed-form:
+
+    w[i,j] ∝ exp(-½ Σ_d (μA_id - μB_jd)² / (bwA_d² + bwB_d²))
+
+Component pairs are drawn exactly from those weights (row by its
+log-partition, then column given row), combined analytically, and the
+D-density product cascades D−1 such pair products.  Above
+``LARGE_PAIR_THRESHOLD`` pairs the row log-partitions come from the
+streaming CUDA kernel (ops/kernels/row_lse.py) and the (Na, Nb) matrix is
+never built.  Index selections are plain indexing: the JAX package's
+one-hot matmuls were a TPU workaround and select the same values.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from .. import keys as _keys
+from ..manifolds import Manifold
+from .kernels.row_lse import pair_row_logsumexp
+
+__all__ = ["manifold_product", "Proposal", "pair_product_tangent",
+           "pair_product_tangent_weighted", "pair_product_tangent_large",
+           "condense_mixture", "product_cascade_tangent",
+           "LARGE_PAIR_THRESHOLD", "CONDENSE_MIN_NB", "CONDENSE_K"]
+
+#: Pair count (Na·Nb) at and above which the pair product streams its row
+#: log-partitions through the CUDA kernel.  Kept at the JAX package's value
+#: so the port takes the same branches; the H100's own crossover is open.
+LARGE_PAIR_THRESHOLD = 1 << 30
+#: incoming densities with at least this many kernels are condensed to
+#: CONDENSE_K weighted clusters before the pair product (JAX package value)
+CONDENSE_MIN_NB = 768
+CONDENSE_K = 256
+_CONDENSE_ITERS = 6
+#: rows per block of the large path's column draw: peak memory is
+#: O(BLOCK · Nb) instead of O(n_out · Nb)
+_LARGE_SEL_BLOCK = 2048
+
+
+class Proposal:
+    """One input density to a product: particle points, per-dim tangent
+    bandwidth and a per-dim constraint mask (False = not constrained)."""
+
+    def __init__(self, points: torch.Tensor, bw: torch.Tensor,
+                 dim_mask: torch.Tensor | None = None):
+        self.points = points
+        self.bw = bw
+        self.dim_mask = (torch.ones(bw.shape[-1], dtype=torch.bool,
+                                    device=bw.device)
+                         if dim_mask is None
+                         else torch.as_tensor(dim_mask, dtype=torch.bool,
+                                              device=bw.device))
+
+
+def _combine(qA, sA, qB, sB):
+    """Precision-weighted merge of selected component pairs."""
+    prec = qA + qB
+    mu = torch.where(prec > 0, (qA * sA + qB * sB) /
+                     torch.clamp(prec, min=1e-30), torch.zeros_like(prec))
+    return mu, prec
+
+
+def _pair_logW(muA, precA, muB, precB):
+    """Agreement log-weights in thin-matmul form.
+
+    B always has one shared precision row in the cascade, so
+    ivar = pA·pB/(pA+pB) depends only on (component of A, dim) and
+    Σ_d ivar (a − b)² = Σ_d ivar a² + ivar·(b²)ᵀ − 2 (ivar⊙a)·bᵀ.
+    Full float32 products (TF32 is off, see config.resolve_device)."""
+    pB0 = precB[0]
+    both = (precA > 0) & (pB0[None, :] > 0)
+    ivar = torch.where(both, precA * pB0 / torch.clamp(precA + pB0,
+                                                      min=1e-30),
+                       torch.zeros_like(precA))
+    a2 = torch.sum(ivar * muA * muA, dim=-1)
+    t2 = ivar @ (muB * muB).T
+    t3 = (ivar * muA) @ muB.T
+    return -0.5 * (a2[:, None] + t2 - 2.0 * t3)
+
+
+def pair_product_tangent(muA, precA, muB, precB, key: int, n_out: int):
+    """Exact product of two diagonal-Gaussian mixtures in tangent coords;
+    ``precB`` shares one precision row.  Returns (mu, prec) of ``n_out``
+    exactly drawn product components: the row by its log-partition, then
+    the column given the row."""
+    logW = _pair_logW(muA, precA, muB, precB)                # (Na, Nb)
+    k_row, k_col = _keys.split(key, 2)
+    row_ls = torch.logsumexp(logW, dim=1)
+    ia = _keys.categorical(k_row, row_ls, n_out)
+    ib = _keys.categorical_rows(k_col, logW[ia])
+    return _combine(precA[ia], muA[ia], precB[ib], muB[ib])
+
+
+def condense_mixture(mu, prec, key: int, k: int,
+                     iters: int = _CONDENSE_ITERS):
+    """Condense an (N, dof) mixture with a shared precision row to k
+    weighted clusters (Lloyd iterations from a strided start; cluster
+    variance folds into the kernel variance; counts become log-weights).
+    Returns (centroids (k, dof), precisions (k, dof), log-weights (k,))."""
+    del key                                  # strided init, no draws
+    n, _ = mu.shape
+    lam = prec[0]
+    w = (lam > 0).to(mu.dtype)
+    x = mu * w                               # cluster constrained dims only
+    stride = max(1, n // k)
+    c = x[::stride][:k]
+    if c.shape[0] < k:
+        c = torch.cat([c, x[:k - c.shape[0]]], dim=0)
+
+    x2 = torch.sum(x * x, 1)
+
+    def assign(c):
+        d2 = x2[:, None] - 2.0 * (x @ c.T) + torch.sum(c * c, 1)[None, :]
+        return torch.argmin(d2, dim=1)
+
+    def stats(lab, v):
+        s = torch.zeros((k, v.shape[1]), dtype=v.dtype, device=v.device)
+        return s.index_add_(0, lab, v)
+
+    ones = torch.ones((n, 1), dtype=mu.dtype, device=mu.device)
+    for _ in range(iters):
+        lab = assign(c)
+        cnt = stats(lab, ones)
+        c = torch.where(cnt > 0, stats(lab, x) / torch.clamp(cnt, min=1.0),
+                        c)
+    lab = assign(c)
+    cnt = stats(lab, ones)
+    mean = stats(lab, mu) / torch.clamp(cnt, min=1.0)
+    var = torch.clamp(stats(lab, mu * mu) / torch.clamp(cnt, min=1.0)
+                      - mean * mean, min=0.0)
+    prec_c = torch.where(lam[None, :] > 0,
+                         1.0 / (1.0 / torch.clamp(lam[None, :], min=1e-30)
+                                + var),
+                         torch.zeros_like(var))
+    cnt = cnt[:, 0]
+    logw = torch.where(cnt > 0, torch.log(torch.clamp(cnt, min=1.0)),
+                       torch.full_like(cnt, -1e30))
+    return mean, prec_c, logw
+
+
+def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key: int,
+                                  n_out: int):
+    """Exact pair product against a weighted mixture with per-component
+    precisions (the condensed form; Nb is the small cluster count)."""
+    def logits_vs_B(mu_rows, prec_rows):
+        pa, pb = prec_rows[:, None, :], precB[None, :, :]
+        both = (pa > 0) & (pb > 0)
+        ivar = torch.where(both, pa * pb / torch.clamp(pa + pb, min=1e-30),
+                           torch.zeros((), dtype=pa.dtype, device=pa.device))
+        diff = mu_rows[:, None, :] - muB[None, :, :]
+        return -0.5 * torch.sum(ivar * diff * diff, dim=-1) + logwB[None, :]
+
+    k_row, k_col = _keys.split(key, 2)
+    row_ls = torch.logsumexp(logits_vs_B(muA, precA), dim=1)
+    ia = _keys.categorical(k_row, row_ls, n_out)
+    sA, qA = muA[ia], precA[ia]
+    ib = _keys.categorical_rows(k_col, logits_vs_B(sA, qA))
+    return _combine(qA, sA, precB[ib], muB[ib])
+
+
+def pair_product_tangent_large(muA, precA, muB, precB, key: int,
+                               n_out: int):
+    """Large-N exact pair product that never builds the (Na, Nb) matrix:
+    row log-partitions stream through the CUDA kernel (its plain version
+    on the CPU), then the selected rows' weights are rebuilt in blocks of
+    ``_LARGE_SEL_BLOCK`` rows for the column draw."""
+    row_ls = pair_row_logsumexp(muA, precA, muB, precB)     # (Na,)
+    k_row, k_col = _keys.split(key, 2)
+    ia = _keys.categorical(k_row, row_ls, n_out)
+
+    blk = min(_LARGE_SEL_BLOCK, n_out)
+    nblk = -(-n_out // blk)
+    keys_b = _keys.split(k_col, nblk)
+    mus, precs = [], []
+    for b in range(nblk):
+        ia_blk = ia[b * blk:(b + 1) * blk]
+        muA_s, precA_s = muA[ia_blk], precA[ia_blk]
+        logW_rows = _pair_logW(muA_s, precA_s, muB, precB)  # (blk, Nb)
+        ib = _keys.categorical_rows(keys_b[b], logW_rows)
+        del logW_rows
+        mu, prec = _combine(precA_s, muA_s, precB[ib], muB[ib])
+        mus.append(mu)
+        precs.append(prec)
+    return torch.cat(mus), torch.cat(precs)
+
+
+def _pair_stage(mu, prec, mu_b, prec_b, key_pair: int, key_condense: int,
+                n_out: int):
+    """One stage of the cascade, routed as in the JAX package: condensed
+    when B is large but the pair count is not, streamed when the pair count
+    reaches ``LARGE_PAIR_THRESHOLD``, exact and materialised otherwise."""
+    nb = mu_b.shape[0]
+    pairs = mu.shape[0] * nb
+    if nb >= CONDENSE_MIN_NB and pairs < LARGE_PAIR_THRESHOLD:
+        cB, pB, lwB = condense_mixture(mu_b, prec_b, key_condense,
+                                       k=min(CONDENSE_K, nb))
+        return pair_product_tangent_weighted(mu, prec, cB, pB, lwB,
+                                             key_pair, n_out)
+    if pairs >= LARGE_PAIR_THRESHOLD:
+        return pair_product_tangent_large(mu, prec, mu_b, prec_b, key_pair,
+                                          n_out)
+    return pair_product_tangent(mu, prec, mu_b, prec_b, key_pair, n_out)
+
+
+def _final_draw(mu, prec, key: int):
+    """One draw inside each selected product component."""
+    noise = torch.randn(mu.shape, generator=_keys.generator(key, mu.device),
+                        device=mu.device, dtype=mu.dtype) \
+        / torch.sqrt(torch.clamp(prec, min=1e-30))
+    return torch.where(prec > 0, mu + noise, torch.zeros_like(mu))
+
+
+def product_cascade_tangent(tangs, precs, key: int, n_out: int):
+    """Cascade exact pairwise products over D densities.  tangs/precs:
+    lists of (N_j, dof).  Returns sampled points (n_out, dof) and the
+    per-dim total precision."""
+    ks = _keys.split(key, 2 * len(tangs))
+    mu, prec = tangs[0], precs[0]
+    noise_key = ks[0]
+    if mu.shape[0] != n_out and len(tangs) == 1:
+        idx = torch.randint(0, mu.shape[0], (n_out,),
+                            generator=_keys.generator(ks[0], mu.device),
+                            device=mu.device)
+        mu, prec = mu[idx], prec[idx]
+        noise_key = _keys.split(ks[0], 1)[0]
+    for j in range(1, len(tangs)):
+        mu, prec = _pair_stage(mu, prec, tangs[j], precs[j], ks[j],
+                               ks[len(tangs) + j], n_out)
+    return _final_draw(mu, prec, noise_key), prec
+
+
+def manifold_product(manifold: Manifold, proposals: Sequence[Proposal],
+                     key: int, n_out: int,
+                     old_points: torch.Tensor | None = None,
+                     sweeps: int = 0) -> torch.Tensor:
+    """Product of proposal densities → ``n_out`` particle points;
+    ``old_points`` fill dims no proposal constrains.  ``sweeps`` is kept for
+    API parity (the exact cascade needs no Gibbs sweeps)."""
+    D = len(proposals)
+    if D == 0:
+        if old_points is None:
+            raise ValueError("empty product with no fallback points")
+        return old_points
+    if D == 1 and bool(torch.all(proposals[0].dim_mask)):
+        return proposals[0].points[:n_out]
+
+    pooled = torch.cat([p.points for p in proposals], dim=0)
+    ref = manifold.mean(pooled)
+    tangs, precs = [], []
+    for p in proposals:
+        t = manifold.log(ref[None, :], p.points)
+        lam = torch.where(p.dim_mask, 1.0 / torch.clamp(p.bw ** 2, min=1e-12),
+                          torch.zeros_like(p.bw))
+        tangs.append(t)
+        precs.append(lam.expand(t.shape))
+    samples, _ = product_cascade_tangent(tangs, precs, key, n_out)
+    if old_points is not None:
+        unconstrained = torch.stack(
+            [torch.max(q, dim=0).values for q in precs]).max(dim=0).values <= 0
+        if bool(torch.any(unconstrained)):
+            old_t = manifold.log(ref[None, :], old_points[:n_out])
+            samples = torch.where(unconstrained[None, :], old_t, samples)
+    return manifold.exp(ref.expand((n_out,) + ref.shape), samples)
