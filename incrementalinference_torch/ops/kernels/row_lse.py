@@ -9,7 +9,7 @@ log-partition ``log Σ_j exp(logW_ij)`` over mixture B's kernels, with
 
 At N = 50k the (Na, Nb) matrix would be 10 GB, so the kernel
 (``csrc/row_lse.cu``, CUDA C++ for ``sm_90a``) streams B through shared
-memory with an online (max, sum-exp) and never builds it.
+memory with an online (reference, sum-exp2) and never builds it.
 
 - :func:`row_logsumexp` is the wrapper.  For a CUDA tensor it launches the
   kernel or raises; for a CPU tensor it takes :func:`row_logsumexp_plain`.
@@ -23,6 +23,7 @@ memory with an online (max, sum-exp) and never builds it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -32,7 +33,8 @@ import time
 import torch
 
 __all__ = ["row_logsumexp", "row_logsumexp_plain", "pair_row_logsumexp",
-           "pair_row_terms", "build", "counts", "reset_counts", "MAX_DOF"]
+           "pair_row_terms", "split_plan", "build", "counts", "reset_counts",
+           "MAX_DOF"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "csrc", "row_lse.cu")
@@ -90,8 +92,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.row_lse_launch.restype = ctypes.c_int
         lib.row_lse_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.row_lse_rows_per_block.restype = ctypes.c_int
-        lib.row_lse_tile_cols.restype = ctypes.c_int
+        for fn in (lib.row_lse_rows_per_block, lib.row_lse_chunk_cols,
+                   lib.row_lse_resident_blocks):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int]
         _LIB = lib
         return lib
 
@@ -137,6 +141,52 @@ def row_logsumexp_plain(a2, iva, ivmuA, muB,
     return mx + torch.log(torch.clamp(s, min=1e-30))
 
 
+#: per-block work that does not shrink with the split (row terms, the lane
+#: merge), in columns' worth of the inner loop
+_SPLIT_OVERHEAD_COLS = 128
+#: a split narrower than this is mostly that overhead
+_MIN_SPLIT_COLS = 2048
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(na: int, nb: int, rows_per_block: int, chunk_cols: int,
+               resident_blocks: int) -> tuple[int, int]:
+    """(splits, cols_per_split) of the kernel's grid.  Blocks run in waves
+    of ``resident_blocks``; the plan takes the split count whose last wave
+    is fullest, discounted by what each extra block costs.  Splits are
+    whole chunks, so only the matrix's last chunk is masked."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    row_blocks = ceil_div(na, rows_per_block)
+    best = None
+    for want in range(1, max(1, nb // _MIN_SPLIT_COLS) + 1):
+        cols = ceil_div(ceil_div(nb, want), chunk_cols) * chunk_cols
+        splits = ceil_div(nb, cols)
+        blocks = row_blocks * splits
+        waves = ceil_div(blocks, resident_blocks)
+        score = (blocks / (waves * resident_blocks)
+                 * cols / (cols + _SPLIT_OVERHEAD_COLS))
+        if best is None or score > best[0] + 1e-9:
+            best = (score, splits, cols)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_constants(device_index: int, dof: int) -> tuple[int, int, int]:
+    """(rows per block, columns per chunk, resident blocks) of the built
+    kernel on this device; asked once, they never change."""
+    lib = build()
+    with torch.cuda.device(device_index):
+        consts = (lib.row_lse_rows_per_block(dof),
+                  lib.row_lse_chunk_cols(dof),
+                  lib.row_lse_resident_blocks(dof))
+    if min(consts) <= 0:
+        raise RuntimeError(f"row_logsumexp kernel: no grid constants for "
+                           f"dof {dof} on cuda:{device_index}: {consts}")
+    return consts
+
+
 def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
     na, nb, dof = _check(a2, iva, ivmuA, muB)
     if dof > MAX_DOF:
@@ -147,24 +197,17 @@ def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = build()
-    rows_per_block = lib.row_lse_rows_per_block()
-    tn = lib.row_lse_tile_cols()
-    # split the columns across blockIdx.y until there are ~4 blocks per SM
-    # slot set (8 resident blocks x SMs), keeping whole tiles per split
-    sms = torch.cuda.get_device_properties(a2.device).multi_processor_count
-    row_blocks = -(-na // rows_per_block)
-    tiles = -(-nb // tn)
-    splits = max(1, min(tiles, -(-(4 * 8 * sms) // row_blocks)))
-    cols_per_split = -(-tiles // splits) * tn
-    splits = -(-nb // cols_per_split)
-    part_m = torch.empty((splits, na), dtype=torch.float32,
-                         device=a2.device)
-    part_s = torch.empty_like(part_m)
+    index = a2.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    splits, cols_per_split = split_plan(na, nb, *_grid_constants(index, dof))
+    part = torch.empty((2, splits, na), dtype=torch.float32,
+                       device=a2.device)
     out = torch.empty((na,), dtype=torch.float32, device=a2.device)
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     rc = lib.row_lse_launch(a2.data_ptr(), iva.data_ptr(), ivmuA.data_ptr(),
-                            muB.data_ptr(), part_m.data_ptr(),
-                            part_s.data_ptr(), out.data_ptr(), na, nb, dof,
+                            muB.data_ptr(), part[0].data_ptr(),
+                            part[1].data_ptr(), out.data_ptr(), na, nb, dof,
                             splits, cols_per_split, stream)
     if rc != 0:
         raise RuntimeError(f"row_logsumexp kernel launch failed: CUDA error "

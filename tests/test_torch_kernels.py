@@ -105,3 +105,166 @@ def test_cuda_path_never_falls_back(monkeypatch, tmp_path):
     with pytest.raises(ValueError):
         K.row_logsumexp(a2.to("meta"), iva.to("meta"), ivm.to("meta"),
                         t(muB).to("meta"))
+
+
+# --- the CUDA kernel's recurrence, step by step ---------------------------
+
+_LOG2E = np.float32(1.4426950408889634)
+_LN2 = np.float32(0.6931471805599453)
+_TAU = 32.0
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add: the product of two float32s is exact in
+    float64, so one rounding remains."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_row_lse(a2, iva, ivmuA, muB, lane_cols=8, cols_per_split=512):
+    """What csrc/row_lse.cu does to every row, in float32 torch ops.
+
+    Base-2 row terms; per column split a reference m_ref that starts from
+    the row's log2-weight at the split's first column; 32 lanes, each with
+    ``lane_cols`` columns of every 32 * lane_cols-column chunk (groups of 4
+    adjacent columns, 128 apart); chunk max, lazy move of m_ref when the
+    max rises more than tau above it, tree sum of exp2; merge of the lanes,
+    merge of the splits, times ln 2.  Returns (out, moves of m_ref)."""
+    na, dof = iva.shape
+    nb = muB.shape[0]
+    c = np.float32(-0.5) * _LOG2E * a2
+    p = np.float32(-0.5) * _LOG2E * iva
+    q = _LOG2E * ivmuA
+    chunk = 32 * lane_cols
+    lane = torch.arange(32)
+    # column offsets of (lane, k) inside a chunk
+    offs = torch.stack([(k // 4) * 128 + 4 * lane + (k % 4)
+                        for k in range(lane_cols)], dim=1)      # (32, C)
+
+    def l2(cm, cols):                  # cm (na, 32), cols (32, C) -> (na,32,C)
+        acc = cm[:, :, None].expand(na, 32, cols.shape[1])
+        for d in range(dof):
+            b = muB[cols, d][None]
+            pd, qd = p[:, d, None, None], q[:, d, None, None]
+            acc = _fma(_fma(pd, b, qd), b, acc)
+        return acc
+
+    moves = 0
+    part_m, part_s = [], []
+    for cb in range(0, nb, cols_per_split):
+        ce = min(nb, cb + cols_per_split)
+        first = torch.full((32, 1), cb)
+        mref = l2(c[:, None].expand(na, 32), first)[:, :, 0]    # (na, 32)
+        cm = c[:, None] - mref
+        s = torch.zeros((na, 32))
+        for base in range(cb, ce, chunk):
+            cols = base + offs
+            valid = cols < ce
+            v = l2(cm, torch.where(valid, cols, cb))
+            v = torch.where(valid[None], v, torch.tensor(-np.inf))
+            w = v
+            while w.shape[2] > 1:                               # max tree
+                h = w.shape[2] // 2
+                w = torch.maximum(w[:, :, :h], w[:, :, h:])
+            mx = w[:, :, 0]
+            rose = mx > _TAU
+            moves += int(rose.sum())
+            shift = torch.where(rose, mx, torch.zeros(()))
+            s = torch.where(rose, s * torch.exp2(-mx), s)
+            mref = mref + shift
+            cm = cm - shift
+            e = torch.exp2(v - shift[:, :, None])
+            while e.shape[2] > 1:                               # sum tree
+                h = e.shape[2] // 2
+                e = e[:, :, :h] + e[:, :, h:]
+            s = s + e[:, :, 0]
+        m = mref.max(dim=1).values                              # lane merge
+        t_ = s * torch.exp2(mref - m[:, None])
+        for off in (16, 8, 4, 2, 1):                            # xor shuffles
+            t_ = t_ + t_[:, lane ^ off]
+        part_m.append(m)
+        part_s.append(t_[:, 0])
+    pm, ps = torch.stack(part_m), torch.stack(part_s)
+    mx = pm.max(dim=0).values
+    total = torch.zeros(na)
+    for k in range(pm.shape[0]):
+        total = total + ps[k] * torch.exp2(pm[k] - mx)
+    return (mx + torch.log2(torch.clamp(total, min=1e-30))) * _LN2, moves
+
+
+def _extreme_case(name):
+    """(muA, precA, muB, precB) of the cases the new arithmetic can get
+    wrong; the same recipes chip_smoke.py runs through the kernel."""
+    r = rng(11)
+    if name.startswith("far_rows"):
+        dof = int(name[-1])
+        muA = np.where(r.random((70, dof)) < 0.5, -1e3, 1e3)
+        muB = r.normal(size=(600, dof))
+        prec = 11.0
+    elif name.startswith("near_"):
+        # one B kernel beside half of the rows, every other one 30 sigma
+        # away (2^-6000 of its weight); the other half of the rows is far
+        # from all of B.  The expanded form carries terms of ivar * 30^2,
+        # so float32 leaves ~1e-3 absolute on every row, in the plain
+        # version too: the far half sets the scale of the relative bar.
+        # Lane 3 of a chunk of 256 owns columns 12..15, 140..143, 268..:
+        # column 12 is the first it meets, 140 the middle of its stride.
+        where = {"near_first": 0, "near_lane_first": 12,
+                 "near_lane_middle": 140, "near_last": 599}[name]
+        dof = 1
+        muA = np.concatenate([30 + 0.3 * r.normal(size=(35, dof)),
+                              -30 + 0.3 * r.normal(size=(35, dof))])
+        muB = r.normal(size=(600, dof))
+        muB[where] = 30.0
+        prec = 11.0
+    elif name == "nb_under_a_warp_dof8":
+        dof = 8
+        muA = 3 * r.normal(size=(37, dof))
+        muB = r.normal(size=(19, dof))
+        prec = 1.5
+    elif name.startswith("zero_precision"):
+        dof = int(name[-1])
+        muA = r.normal(size=(40, dof))
+        muB = r.normal(size=(300, dof))
+        prec = 0.0
+    else:
+        raise KeyError(name)
+    muA, muB = muA.astype(np.float32), muB.astype(np.float32)
+    return (muA, np.full_like(muA, prec), muB, np.full_like(muB, prec))
+
+
+EXTREME_CASES = ["far_rows_dof1", "far_rows_dof8", "near_first",
+                 "near_lane_first", "near_lane_middle", "near_last",
+                 "nb_under_a_warp_dof8", "zero_precision_dof1",
+                 "zero_precision_dof8"]
+
+
+@pytest.mark.parametrize("lane_cols", [8, 4])
+@pytest.mark.parametrize("name", EXTREME_CASES)
+def test_kernel_recurrence_matches_plain(name, lane_cols):
+    muA, precA, muB, precB = _extreme_case(name)
+    a2, iva, ivm = K.pair_row_terms(t(muA), t(precA), t(muB), t(precB))
+    ref = K.row_logsumexp_plain(a2, iva, ivm, t(muB))
+    got, moves = emulate_row_lse(a2, iva, ivm, t(muB), lane_cols=lane_cols)
+    assert bool(torch.isfinite(got).all())
+    # chip_smoke.py's formula and bar.  What differs from the plain version:
+    # float32 sums in another order (lanes, chunks, splits), the base-2 row
+    # terms' own rounding, and on the card ex2.approx at 2^-22 relative
+    err = float((got - ref).abs().max() / ref.abs().max().clamp(min=1.0))
+    assert err <= 1e-5, err
+    if name.startswith("zero_precision"):
+        torch.testing.assert_close(
+            got, torch.full_like(got, float(np.log(muB.shape[0]))))
+    if name in ("near_lane_middle", "near_last"):
+        assert moves > 0          # the late rise really moved m_ref
+
+
+@pytest.mark.parametrize("na,nb,rows,chunk,resident", [
+    (50_000, 50_000, 64, 256, 264), (65_536, 65_536, 64, 256, 264),
+    (33_000, 33_000, 32, 128, 264), (16_384, 65_536, 64, 256, 264),
+    (1037, 19, 32, 128, 264), (3000, 40_000, 64, 256, 264)])
+def test_split_plan_covers_the_columns(na, nb, rows, chunk, resident):
+    splits, cols = K.split_plan(na, nb, rows, chunk, resident)
+    assert cols % chunk == 0                    # whole chunks per split
+    assert (splits - 1) * cols < nb <= splits * cols   # cover, none empty
+    # never so many splits that a block is mostly its fixed cost
+    assert splits == 1 or cols >= K._MIN_SPLIT_COLS

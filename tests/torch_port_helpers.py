@@ -5,10 +5,31 @@ numpy-made inputs; six pytest workers share the CPU, so each file keeps
 torch to two threads.
 """
 
+import time
+
 import numpy as np
 import torch
 
 torch.set_num_threads(2)
+
+
+def jax_native_ordering_available(wait_s: float = 60.0) -> bool:
+    """The JAX package's native ordering, loaded into this process.
+
+    That package compiles straight into its ``build/`` library file, so a
+    second pytest worker can find the file half-written, fail to load it
+    and remember the failure for good.  Forget the failure and try again
+    until the other worker's compiler has finished."""
+    import incrementalinference.jl_tpu.native as jn
+
+    deadline = time.monotonic() + wait_s
+    while not jn.native_available():
+        if time.monotonic() >= deadline:
+            return False
+        jn._FAILED = False
+        jn._LIB = None
+        time.sleep(1.0)
+    return True
 
 
 def rng(seed: int = 0) -> np.random.Generator:
