@@ -23,12 +23,22 @@ Phases (any failure exits non-zero before the result line; none is caught):
    benchmarks/pallas_e2e_solve.py through ``solve_tree`` on CUDA: every
    two-proposal product is 50k x 50k pairs and goes through the kernel
    (its launch count must grow); bars |mean - mu| < 0.2, 0.4 < std < 1.5;
-5. time the kernel, its plain version and one library route
+5. the multimodal, incremental solve: the fourdoor story (a four-mode
+   Mixture prior seen three times along a chain; build, solve, grow,
+   re-solve with ``old_tree``) at N = 100 and at N = 50,000, where its
+   products go through the kernel, with the bars of
+   tests/test_solve.py:23-39 after each solve; a chain that grows by six
+   poses three times, re-solved with clique recycling, once with the
+   wildfire gate off and once at tolerance 0.6 (|mean(x_i) - i| < 0.5, the
+   recycled count grows; ``wildfire_stats`` of both printed); the
+   range-only graph (EuclidDistance, dof 2, the LM branch of the
+   convolution) at the bars of tests/test_solve.py:181-193;
+6. time the kernel, its plain version and one library route
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, and the
    kernel beside its bound at four more (n, dof);
-6. profile one more warm solve of each configuration (torch.profiler):
-   device busy share, the ten device operations and the ten host operators
-   with the most time.
+7. profile one more warm solve of the LineStep and the two-variable
+   configuration (torch.profiler): device busy share, the ten device
+   operations and the ten host operators with the most time.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object of per-kernel numbers, and
@@ -144,6 +154,10 @@ def phase_compare(K, dev):
     muA = torch.randn((65536, 3), generator=gen, device=dev)
     ones = torch.ones((65536, 3), device=dev)
     cases.append((muA, ones, muA + 0.5, ones, (65536, 3)))
+    # the range graph's width, Na != Nb, Nb no multiple of a column chunk
+    muA, precA, _, _ = inputs(gen, 3000, 2, dev)
+    _, _, muB, precB = inputs(gen, 5003, 2, dev)
+    cases.append((muA, precA, muB, precB, "dof 2, Na 3000, Nb 5003"))
     cases.extend(extreme_cases(gen, dev))
     for muA, precA, muB, precB, tag in cases:
         a2, iva, ivm = K.pair_row_terms(muA, precA, muB, precB)
@@ -227,6 +241,115 @@ def phase_large(it, K):
     return walls, launches[-1]
 
 
+def _mode_mass(fg, v, center, tol=20.0):
+    return float(((fg.points(v)[:, 0] - center).abs() < tol).float().mean())
+
+
+def _check_fourdoor(fg, step):
+    """The bars of tests/test_solve.py:23-39 after solve ``step``."""
+    if step == 1:
+        for c in (-100, 0, 100, 300):
+            check(_mode_mass(fg, "x1", c) > 0.08, f"step 1: door {c} lost")
+    elif step == 2:
+        m = {(v, c): _mode_mass(fg, v, c)
+             for v, c in (("x1", -100), ("x1", 0), ("x1", 300), ("x3", 0),
+                          ("x3", 100))}
+        check(m["x1", -100] + m["x1", 0] > 0.8, f"step 2: x1 {m}")
+        check(m["x1", 300] < 0.1, f"step 2: x1 at 300 {m}")
+        check(m["x3", 0] + m["x3", 100] > 0.8, f"step 2: x3 {m}")
+    else:
+        for v, c in (("x1", 0.0), ("x2", 50.0), ("x3", 100.0),
+                     ("x4", 300.0)):
+            mean = float(fg.points(v).mean())
+            check(_mode_mass(fg, v, c) >= 0.8, f"step 3: {v} mass at {c}")
+            check(abs(mean - c) < 10.0, f"step 3: {v} mean {mean}")
+
+
+def phase_fourdoor(it, K, N, dev):
+    """The fourdoor story through the port's entry points: three times grow
+    the graph and ``solve_tree(fg, old_tree=tree)``.  Returns the kernel
+    launches of each step: the counts are set to 0 before the step grows
+    the graph and read after its solve."""
+    fg, steps = it.fourdoor_sequence(it.SolverParams(N=N), device=dev)
+    tree, walls, launches, recycled = None, [], [], []
+    for k, step in enumerate(steps, start=1):
+        K.reset_counts()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tree = it.solve_tree(fg, old_tree=tree)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        launches.append(K.counts["launches"])
+        recycled.append(sum(c.is_recycled for c in tree.cliques.values()))
+        _check_fourdoor(fg, k)
+    means = {v: round(float(fg.points(v).mean()), 2) for v in fg.ls()}
+    print(f"PASS fourdoor N={N} on {dev}, three solves with old_tree: "
+          f"walls {[round(w, 3) for w in walls]} s; kernel launches per "
+          f"step {launches}; recycled cliques per step {recycled} of "
+          f"{tree.num_cliques()}; final means {means}", flush=True)
+    return launches
+
+
+def phase_growing_chain(it, dev, wildfire_tol):
+    """tests/test_solve.py:264-286: a prior, then three times six more
+    poses and a re-solve that recycles the cliques of the last tree."""
+    fg = it.initfg(it.SolverParams(wildfire_tol=wildfire_tol), device=dev)
+    fg.add_variable("x0", it.ContinuousScalar)
+    fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 0.5)))
+    tree, i, walls, recycled = None, 0, [], []
+    for _ in range(3):
+        for _ in range(6):
+            i += 1
+            fg.add_variable(f"x{i}", it.ContinuousScalar)
+            fg.add_factor([f"x{i - 1}", f"x{i}"],
+                          it.LinearRelative(it.Normal(1.0, 0.1)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tree = it.solve_tree(fg, old_tree=tree)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        recycled.append(sum(c.is_recycled for c in tree.cliques.values()))
+        for j in range(i + 1):
+            m = float(fg.points(f"x{j}").mean())
+            check(abs(m - j) < 0.5, f"chain x{j}: mean {m} (tol "
+                                    f"{wildfire_tol}, {i} poses)")
+    check(0 < recycled[1] < recycled[2], f"recycled counts {recycled}")
+    print(f"PASS growing chain N=100, wildfire_tol={wildfire_tol}: walls "
+          f"{[round(w, 3) for w in walls]} s; recycled {recycled} of "
+          f"{tree.num_cliques()} cliques; wildfire_stats of the last solve "
+          f"{tree.wildfire_stats} (stat_syncs = device-to-host reads)",
+          flush=True)
+
+
+def phase_euclid(it, dev):
+    """The range-only landmark graph: two rings of radius 100 around
+    (100, 0) and (0, 100) meet at (0, 0) and (100, 100)."""
+    fg = it.generate_euclid_distance(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    it.solve_tree(fg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    pts = fg.points("l1")
+
+    def near(x, y, r):
+        return float(((pts - torch.tensor([x, y], device=pts.device))
+                      .norm(dim=1) < r).float().mean())
+
+    def on_ring(x, y):
+        d = (pts - torch.tensor([x, y], device=pts.device)).norm(dim=1)
+        return float(((d - 100.0).abs() < 15).float().mean())
+
+    a, b = near(0.0, 0.0, 30), near(100.0, 100.0, 30)
+    r1, r2 = on_ring(100.0, 0.0), on_ring(0.0, 100.0)
+    check(a > 0.04 and b > 0.04 and a + b > 0.6, f"ring modes {a}, {b}")
+    check(r1 > 0.85 and r2 > 0.85, f"on the rings {r1}, {r2}")
+    print(f"PASS range-only graph N=100 on {dev}: {wall:.3f} s; mode "
+          f"shares {a:.2f} at (0,0), {b:.2f} at (100,100); on the rings "
+          f"{r1:.2f}, {r2:.2f}", flush=True)
+
+
 def timing_inputs(K, n, dof, dev):
     """Row terms shaped like the solve's products: unit-scale particles,
     bandwidth ~ 0.3."""
@@ -253,7 +376,7 @@ def bound_ms(n, dof):
     return max(t_bytes, t_flops, t_exp), t_bytes, t_flops, t_exp
 
 
-def phase_timing(K, dev, launches):
+def phase_timing(K, dev, launches, launches_by_path):
     """Kernel, plain and library times at the main path's shape, and the
     kernel beside its bound at four more shapes."""
     n, dof = 50_000, 1
@@ -296,7 +419,8 @@ def phase_timing(K, dev, launches):
                       "row_lse.cu",
             "replaces": "incrementalinference/jl_tpu/ops/kernels/"
                         "pallas_product.py:27",
-            "launches": launches, "max_abs_err": max_abs, "ms": k_ms,
+            "launches": launches, "launches_by_path": launches_by_path,
+            "max_abs_err": max_abs, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= max(t_flops, t_exp)
             else "operations",
@@ -438,7 +562,17 @@ def main() -> int:
     phase_compare(K, dev)
     phase_linestep(it, K)
     _, launches = phase_large(it, K)
-    entry = phase_timing(K, dev, launches)
+    phase_fourdoor(it, K, 100, "cuda")
+    for tol in (0.0, 0.6):
+        phase_growing_chain(it, "cuda", tol)
+    fd_launches = phase_fourdoor(it, K, 50_000, "cuda")
+    check(fd_launches[1] > 0 and fd_launches[2] > 0,
+          f"the N=50k fourdoor solves never launched the row_logsumexp "
+          f"kernel: {fd_launches}")
+    phase_euclid(it, "cuda")
+    entry = phase_timing(K, dev, launches, {
+        "two-variable N=50000, one solve": launches,
+        "fourdoor N=50000, solves 1-3": fd_launches})
     from incrementalinference_torch.canonical import generate_line_step
     phase_profile(it, "LineStep(20) N=100", lambda: generate_line_step(
         20, graphinit=True, device="cuda"))

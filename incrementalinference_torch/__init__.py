@@ -6,20 +6,39 @@ the reference).  Graphs live on a device, CUDA unless the caller passes
 CUDA kernel (ops/kernels/csrc/row_lse.cu).
 """
 
-from .api import solve_graph, solve_tree
+from .api import (approx_cliq_marginal_up, fifo_freeze, set_ppe,
+                  solve_cliq_down, solve_cliq_up,
+                  solve_cliq_with_state_machine, solve_graph, solve_tree)
 from .beliefs import Belief, make_belief
-from .canonical import generate_kaess, generate_line_step
+from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
+                        generate_euclid_distance, generate_kaess,
+                        generate_line_step, generate_test_symbolic)
 from .config import SolverParams, resolve_device
 from .convert import graph_from_arrays, graph_to_arrays
-from .distributions import MvNormal, Normal
+from .distributions import (AliasingScalarSampler, Categorical,
+                            ManifoldKernelDensity, MvNormal, Normal, Rayleigh,
+                            Uniform, manikde)
 from .graph import (ContinuousEuclid, ContinuousScalar, FactorGraph,
                     initfg)
-from .models import LinearRelative, MsgPrior, Prior
+from .graphinit import init_all, init_variable, reset_initial_values
+from .models import (EuclidDistance, FactorModel, LinearRelative, Mixture,
+                     MsgPrior, Prior, register_factor_model)
+from .parallel.scheduler import CliqueTrace
+from .tree import BayesTree, CliqStatus, build_tree, build_tree_reset
 
 __version__ = "0.1.0"
 
-__all__ = ["solve_tree", "solve_graph", "Belief", "make_belief",
-           "generate_kaess", "generate_line_step", "SolverParams",
-           "resolve_device", "graph_from_arrays", "graph_to_arrays",
-           "Normal", "MvNormal", "ContinuousScalar", "ContinuousEuclid",
-           "FactorGraph", "initfg", "Prior", "LinearRelative", "MsgPrior"]
+__all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
+           "solve_cliq_with_state_machine", "approx_cliq_marginal_up",
+           "fifo_freeze", "set_ppe", "Belief", "make_belief",
+           "generate_kaess", "generate_line_step", "generate_test_symbolic",
+           "generate_caesar_ring1d", "generate_euclid_distance",
+           "fourdoor_sequence", "SolverParams", "resolve_device",
+           "graph_from_arrays", "graph_to_arrays", "Normal", "MvNormal",
+           "Uniform", "Rayleigh", "Categorical", "AliasingScalarSampler",
+           "ManifoldKernelDensity", "manikde", "ContinuousScalar",
+           "ContinuousEuclid", "FactorGraph", "initfg", "init_all",
+           "init_variable", "reset_initial_values", "Prior",
+           "LinearRelative", "EuclidDistance", "Mixture", "MsgPrior",
+           "FactorModel", "register_factor_model", "CliqueTrace",
+           "BayesTree", "CliqStatus", "build_tree", "build_tree_reset"]

@@ -1,23 +1,40 @@
 """Solver API — user entry points.
 
 Counterpart of ``incrementalinference/jl_tpu/api.py`` (reference
-solveTree! = solveGraph!): init → freeze → tree build → up/down sweeps.
+solveTree! = solveGraph!, solveCliqUp!/solveCliqDown!): init → freeze →
+tree build, recycling cliques of the previous solve's tree → up/down sweeps.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from .beliefs import Belief, ppe as calc_ppe
 from .graph import FactorGraph
 from .graphinit import ensure_solvable, init_all
-from .parallel.scheduler import solve_tree_sweeps
-from .tree.bayestree import BayesTree, build_tree
+from .parallel.messages import (LikelihoodMessage, prep_msg_down,
+                                prep_msg_up)
+from .parallel.scheduler import (down_solve_clique, solve_tree_sweeps,
+                                 up_solve_clique)
+from .tree.bayestree import BayesTree, CliqStatus, build_tree_reset
 
-__all__ = ["solve_tree", "solve_graph", "fifo_freeze"]
+__all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
+           "solve_cliq_with_state_machine", "approx_cliq_marginal_up",
+           "fifo_freeze", "set_ppe"]
 
 logger = logging.getLogger(__name__)
+
+
+def set_ppe(fg: FactorGraph, label: str, solve_key: str = "default") -> dict:
+    """Compute and store one variable's posterior point estimate from its
+    current belief (reference setPPE!).  Returns the stored dict (mean, max,
+    suggested)."""
+    v = fg.var(label)
+    est = calc_ppe(v.manifold, fg.get_belief(label, solve_key))
+    v.ppe[solve_key] = est
+    return est
 
 
 def fifo_freeze(fg: FactorGraph) -> List[str]:
@@ -42,13 +59,9 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                order: Optional[Sequence[str]] = None,
                verbose: bool = False) -> BayesTree:
     """Nonparametric MM-iSAM solve over the Bayes tree (reference
-    solveTree!).  Runs on the graph's device.  Returns the tree.
-
-    ``old_tree`` (incremental clique recycling) is not ported yet and is
-    refused."""
-    if old_tree is not None:
-        raise NotImplementedError("clique recycling (old_tree) is not "
-                                  "ported yet")
+    solveTree!).  Runs on the graph's device.  Returns the tree: pass it
+    back as ``old_tree`` after the graph has grown, and the cliques that
+    are unchanged are recycled (``SolverParams.incremental``)."""
     params = fg.params
     t0 = time.time()
     ensure_solvable(fg)
@@ -61,13 +74,14 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                 v.beliefs[snap] = v.beliefs[solve_key]
     fifo_freeze(fg)
 
-    tree = build_tree(fg, order=order)
+    tree = build_tree_reset(fg, order=order, old_tree=old_tree)
     if verbose:
         logger.info("tree: %d cliques, depth %d, build %.3fs",
                     tree.num_cliques(), len(tree.levels()), tree.build_time)
-    solve_tree_sweeps(fg, tree, solve_key=solve_key,
-                      up=params.upsolve if up is None else up,
-                      down=params.downsolve if down is None else down)
+    tree.traces = solve_tree_sweeps(
+        fg, tree, solve_key=solve_key,
+        up=params.upsolve if up is None else up,
+        down=params.downsolve if down is None else down)
     for v in fg.variables.values():
         if v.solvable and v.is_initialized(solve_key):
             v.solved_count[solve_key] = v.get_solved_count(solve_key) + 1
@@ -80,3 +94,63 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
 def solve_graph(fg: FactorGraph, **kw) -> BayesTree:
     """Alias of :func:`solve_tree` (reference solveGraph! = solveTree!)."""
     return solve_tree(fg, **kw)
+
+
+def solve_cliq_up(fg: FactorGraph, tree: BayesTree, frontal: str,
+                  child_msgs: Optional[List[LikelihoodMessage]] = None,
+                  solve_key: str = "default") -> LikelihoodMessage:
+    """Up-solve the one clique that holds ``frontal`` (reference
+    solveCliqUp!).
+
+    ``child_msgs=None`` builds each child's up message from the graph's
+    current beliefs; pass ``[]`` for a solve without messages.  A child
+    whose separator is not initialized under ``solve_key`` is left out with
+    a warning: a message made of its placeholder points would enter the
+    solve as a prior."""
+    cl = tree.clique_of(frontal)
+    if child_msgs is None:
+        child_msgs = []
+        for ch in tree.children(cl.cid):
+            if all(fg.var(v).is_initialized(solve_key)
+                   for v in ch.separator if v in fg.variables):
+                child_msgs.append(prep_msg_up(fg, ch, CliqStatus.UPSOLVED,
+                                              solve_key))
+            else:
+                logger.warning(
+                    "solve_cliq_up(%s): no message from child clique %d, "
+                    "its separator is not initialized under %r", frontal,
+                    ch.cid, solve_key)
+    return up_solve_clique(fg, tree, cl, child_msgs, solve_key)
+
+
+# reference solveCliqWithStateMachine: one clique's solve in isolation is
+# the harness above (the state machine became the static schedule)
+solve_cliq_with_state_machine = solve_cliq_up
+
+
+def approx_cliq_marginal_up(fg: FactorGraph, tree: BayesTree, frontal: str,
+                            child_msgs: Optional[List[LikelihoodMessage]]
+                            = None, solve_key: str = "default"
+                            ) -> Dict[str, Belief]:
+    """Run one clique's up Gibbs and return the marginal belief of each of
+    its variables, frontals and separator (reference
+    approxCliqMarginalUp!)."""
+    cl = tree.clique_of(frontal)
+    up_solve_clique(fg, tree, cl, child_msgs or [], solve_key)
+    return {v: fg.get_belief(v, solve_key) for v in cl.all_vars}
+
+
+def solve_cliq_down(fg: FactorGraph, tree: BayesTree, frontal: str,
+                    down_msg: Optional[LikelihoodMessage] = None,
+                    child_msgs: Optional[List[LikelihoodMessage]] = None,
+                    solve_key: str = "default"
+                    ) -> Dict[int, LikelihoodMessage]:
+    """Down-solve the one clique that holds ``frontal`` (reference
+    solveCliqDown!).  ``down_msg=None`` on a clique with a parent builds the
+    incoming message from the parent's current beliefs."""
+    cl = tree.clique_of(frontal)
+    if down_msg is None and cl.parent is not None:
+        down_msg = prep_msg_down(fg, tree.clique(cl.parent), cl,
+                                 CliqStatus.DOWNSOLVED, solve_key)
+    return down_solve_clique(fg, tree, cl, down_msg, solve_key,
+                             child_msgs=child_msgs)

@@ -1,20 +1,24 @@
 """Canonical graph generators.
 
-Counterpart of the generators of ``incrementalinference/jl_tpu/canonical.py``
-that the main path uses (reference CanonicalGraphExamples.jl:
-generateGraph_Kaess, generateGraph_LineStep).
+Counterpart of ``incrementalinference/jl_tpu/canonical.py`` (reference
+CanonicalGraphExamples.jl: generateGraph_Kaess, _TestSymbolic,
+_CaesarRing1D, _LineStep, _EuclidDistance) and the fourdoor sequence
+(reference test/fourdoortest.jl).  The SE(2) hexagon comes with the
+manifolds.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Tuple
 
 from .config import SolverParams
 from .distributions import MvNormal, Normal
 from .graph import ContinuousEuclid, ContinuousScalar, FactorGraph, initfg
-from .models import LinearRelative, Prior
+from .models import EuclidDistance, LinearRelative, Mixture, Prior
 
-__all__ = ["generate_kaess", "generate_line_step"]
+__all__ = ["generate_kaess", "generate_test_symbolic",
+           "generate_caesar_ring1d", "generate_line_step",
+           "generate_euclid_distance", "fourdoor_sequence"]
 
 
 def generate_kaess(graphinit: bool = False,
@@ -30,6 +34,37 @@ def generate_kaess(graphinit: bool = False,
         if new is not None:
             fg.add_variable(new, ContinuousScalar)
         fg.add_factor([a, b], LinearRelative(Normal(0, 1)),
+                      graphinit=graphinit)
+    return fg
+
+
+def generate_test_symbolic(graphinit: bool = False,
+                           device=None) -> FactorGraph:
+    """Borglab symbolic-elimination example (8 vars)."""
+    fg = initfg(device=device)
+    for v in ["x1", "x2", "x3", "x4", "x5", "l1", "l2", "l3"]:
+        fg.add_variable(v, ContinuousScalar)
+    for a, b in [("x1", "l1"), ("x1", "x2"), ("x2", "l1"), ("x2", "x3"),
+                 ("x3", "x4"), ("x4", "l2"), ("x4", "x5"), ("l2", "x5"),
+                 ("x4", "l3"), ("x5", "l3")]:
+        fg.add_factor([a, b], LinearRelative(Normal(0, 1)),
+                      graphinit=graphinit)
+    return fg
+
+
+def generate_caesar_ring1d(graphinit: bool = False,
+                           device=None) -> FactorGraph:
+    """Caesar hex example: 7 poses and one landmark closing the loop."""
+    fg = initfg(device=device)
+    for i in range(7):
+        fg.add_variable(f"x{i}", ContinuousScalar)
+    fg.add_factor(["x0"], Prior(Normal(0, 1)), graphinit=graphinit)
+    for i in range(6):
+        fg.add_factor([f"x{i}", f"x{i + 1}"], LinearRelative(Normal(0, 1)),
+                      graphinit=graphinit)
+    fg.add_variable("l1", ContinuousScalar)
+    for x in ("x0", "x6"):
+        fg.add_factor([x, "l1"], LinearRelative(Normal(0, 1)),
                       graphinit=graphinit)
     return fg
 
@@ -82,3 +117,53 @@ def generate_line_step(line_length: int, pose_every: int = 2,
                               LinearRelative(noise(lmi - xi, sigma_pose_lm)),
                               graphinit=graphinit)
     return fg
+
+
+def generate_euclid_distance(points=((100.0, 0.0), (0.0, 100.0)),
+                             dist: float = 100.0, sigma_prior: float = 1.0,
+                             sigma_dist: float = 1.0, N: int = 100,
+                             graphinit: bool = False,
+                             device=None) -> FactorGraph:
+    """Range-only landmark graph: the rings around the prior points
+    intersect in more than one mode."""
+    dims = len(points[0])
+    fg = initfg(SolverParams(N=N, graphinit=graphinit), device=device)
+    for i, p in enumerate(points):
+        lbl = f"x{i + 1}"
+        fg.add_variable(lbl, ContinuousEuclid(dims))
+        fg.add_factor([lbl], Prior(MvNormal(list(p), [sigma_prior] * dims)))
+    fg.add_variable("l1", ContinuousEuclid(dims))
+    for i in range(len(points)):
+        fg.add_factor([f"x{i + 1}", "l1"],
+                      EuclidDistance(Normal(dist, sigma_dist)))
+    return fg
+
+
+def fourdoor_sequence(params: Optional[SolverParams] = None, device=None
+                      ) -> Tuple[FactorGraph, List[Callable[[], None]]]:
+    """The fourdoor multimodal 1-D robot story (reference
+    test/fourdoortest.jl) as (fg, steps): each step grows ``fg`` and
+    expects a solve after it."""
+    fg = initfg(params, device=device)
+    cv = 3.0
+    door = Mixture(Prior,
+                   [Normal(-100, cv), Normal(0, cv), Normal(100, cv),
+                    Normal(300, cv)], [0.25, 0.25, 0.25, 0.25])
+
+    def step1():
+        fg.add_variable("x1", ContinuousScalar)
+        fg.add_factor(["x1"], door)
+
+    def step2():
+        fg.add_variable("x2", ContinuousScalar)
+        fg.add_factor(["x1", "x2"], LinearRelative(Normal(50.0, 2.0)))
+        fg.add_variable("x3", ContinuousScalar)
+        fg.add_factor(["x2", "x3"], LinearRelative(Normal(50.0, 4.0)))
+        fg.add_factor(["x3"], door)
+
+    def step3():
+        fg.add_variable("x4", ContinuousScalar)
+        fg.add_factor(["x3", "x4"], LinearRelative(Normal(200.0, 4.0)))
+        fg.add_factor(["x4"], door)
+
+    return fg, [step1, step2, step3]

@@ -25,8 +25,8 @@ class SolverParams:
     algorithms: tuple = ("default", "parametric")
     # Auto-initialize variables from factor neighborhoods on addFactor.
     graphinit: bool = True
-    # Incremental tree recycling between solves (not ported yet: every
-    # solve builds a fresh tree).
+    # Incremental tree recycling between solves: with an ``old_tree``,
+    # cliques whose signature and subtree are unchanged skip their up-solve.
     incremental: bool = True
     # Joint/likelihood up-messages (reference useMsgLikelihoods; not ported
     # yet — the scheduler refuses True).
@@ -64,11 +64,12 @@ class SolverParams:
     # Upsolve only / downsolve only switches.
     upsolve: bool = True
     downsolve: bool = True
-    # Log path for per-clique traces (reference logpath).
+    # Log path for per-clique history files (reference logpath).  Kept for
+    # parity: the port keeps traces in memory (tree.traces) and writes none.
     logpath: str = "/tmp/iitpu"
     # Seed of the graph's host-side key stream (see keys.py).
     seed: int = 42
-    # Record per-clique scheduler traces.
+    # Record per-clique scheduler traces (tree.traces after a solve).
     record_cliques: bool = False
     # dtype for belief/particle arrays.
     dtype: str = "float32"
@@ -85,7 +86,11 @@ class SolverParams:
     fuse_clique: object = "auto"
     # Segment fusion (JAX package); kept for parity, not ported.
     fuse_sweep: object = "auto"
-    # Wildfire down-solve gate (JAX package); kept for parity, not ported.
+    # Wildfire down-solve gate for incremental solves: a recycled clique
+    # whose incoming down message moved at most this many spreads since the
+    # last solve skips its down-solve.  0.0 is off (reference semantics:
+    # recycled cliques re-run the down pass); "auto" turns it on for trees
+    # with many recycled cliques (parallel/scheduler.py).
     wildfire_tol: object = 0.0
 
     def replace(self, **kw: Any) -> "SolverParams":

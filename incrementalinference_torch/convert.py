@@ -19,8 +19,13 @@ The dict::
                   "variables": [labels], "Z": distribution dict,
                   "multihypo", "nullhypo", "solvable", "tags"}, ...]}
 
-with a distribution dict ``{"type": "Normal", "mu", "sigma"}`` or
-``{"type": "MvNormal", "mu", "cov"}``.
+A distribution dict is ``{"type": name, field: value, ...}`` with the
+fields of ``_DIST_FIELDS`` (``{"type": "Normal", "mu", "sigma"}``,
+``{"type": "MvNormal", "mu", "cov"}``, ...); a KDE is
+``{"type": "ManifoldKernelDensity", "dof", "points", "bw"}`` on R^dof.  A
+Mixture factor has, in place of "Z", ``"mechanics"`` (the name of the
+factor type whose residual it uses), ``"components"`` (distribution dicts)
+and ``"diversity"`` (weights).
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ import numpy as np
 import torch
 
 from .config import SolverParams
-from .distributions import MvNormal, Normal
+from . import distributions as _d
 from .graph import ContinuousEuclid, ContinuousScalar, FactorGraph
-from .models.factors import MODEL_REGISTRY
+from .manifolds import Euclidean
+from .models.factors import MODEL_REGISTRY, Mixture
 
 __all__ = ["graph_from_arrays", "graph_to_arrays"]
 
@@ -49,23 +55,52 @@ def _vartype(name: str):
     raise ValueError(f"unsupported variable type {name!r}")
 
 
+#: distribution type name -> constructor fields, in order
+_DIST_FIELDS = {"Normal": ("mu", "sigma"), "MvNormal": ("mu", "cov"),
+                "Uniform": ("a", "b"), "Rayleigh": ("sigma",),
+                "Categorical": ("p",),
+                "AliasingScalarSampler": ("x", "weights")}
+
+
 def _dist_from(d: dict):
-    if d["type"] == "Normal":
-        return Normal(float(np.asarray(d["mu"])),
-                      float(np.asarray(d["sigma"])))
-    if d["type"] == "MvNormal":
-        return MvNormal(np.asarray(d["mu"], np.float32),
-                        np.asarray(d["cov"], np.float32))
-    raise ValueError(f"unsupported distribution {d['type']!r}")
+    if d["type"] == "ManifoldKernelDensity":
+        return _d.ManifoldKernelDensity(Euclidean(int(d["dof"])),
+                                        d["points"], bw=d.get("bw"))
+    if d["type"] not in _DIST_FIELDS:
+        raise ValueError(f"unsupported distribution {d['type']!r}")
+    return getattr(_d, d["type"])(*(np.asarray(d[f], np.float32)
+                                    for f in _DIST_FIELDS[d["type"]]))
 
 
 def _dist_to(z) -> dict:
-    if isinstance(z, Normal):
-        return {"type": "Normal", "mu": float(z.mu), "sigma": float(z.sigma)}
-    if isinstance(z, MvNormal):
-        return {"type": "MvNormal", "mu": np.asarray(z.mu),
-                "cov": np.asarray(z.cov)}
-    raise ValueError(f"unsupported distribution {type(z).__name__}")
+    name = type(z).__name__
+    if name == "ManifoldKernelDensity":
+        return {"type": name, "dof": z.manifold.dof,
+                "points": np.asarray(z.points),
+                "bw": None if z.bw is None else np.asarray(z.bw)}
+    if name not in _DIST_FIELDS:
+        raise ValueError(f"unsupported distribution {name}")
+    return {"type": name,
+            **{f: np.asarray(getattr(z, f)) for f in _DIST_FIELDS[name]}}
+
+
+def _model_from(f: dict):
+    if f["type"] not in MODEL_REGISTRY:
+        raise ValueError(f"unsupported factor type {f['type']!r}")
+    cls, _ = MODEL_REGISTRY[f["type"]]
+    if cls is Mixture:
+        return Mixture(MODEL_REGISTRY[f["mechanics"]][0],
+                       [_dist_from(c) for c in f["components"]],
+                       f["diversity"])
+    return cls(_dist_from(f["Z"])) if "Z" in f else cls()
+
+
+def _model_to(model) -> dict:
+    if isinstance(model, Mixture):
+        return {"mechanics": type(model.mechanics).__name__,
+                "components": [_dist_to(c) for c in model.components],
+                "diversity": np.asarray(model.diversity)}
+    return {"Z": _dist_to(model.Z)} if hasattr(model, "Z") else {}
 
 
 def _tensor(a, device):
@@ -89,11 +124,7 @@ def graph_from_arrays(spec: dict, device=None) -> FactorGraph:
                 bw=None if bw is None else _tensor(bw, fg.device),
                 ipc=None if ipc is None else _tensor(ipc, fg.device))
     for f in spec["factors"]:
-        if f["type"] not in MODEL_REGISTRY:
-            raise ValueError(f"unsupported factor type {f['type']!r}")
-        cls, _ = MODEL_REGISTRY[f["type"]]
-        model = cls(_dist_from(f["Z"])) if "Z" in f else cls()
-        fg.add_factor(f["variables"], model, multihypo=f.get("multihypo"),
+        fg.add_factor(f["variables"], _model_from(f), multihypo=f.get("multihypo"),
                       nullhypo=f.get("nullhypo", 0.0), label=f["label"],
                       graphinit=False, tags=f.get("tags", ()),
                       solvable=f.get("solvable", 1))
@@ -121,9 +152,7 @@ def graph_to_arrays(fg: FactorGraph, solve_key: str = "default") -> dict:
              "variables": list(f.variables),
              "multihypo": None if f.multihypo is None else list(f.multihypo),
              "nullhypo": f.nullhypo, "solvable": f.solvable,
-             "tags": sorted(f.tags)}
-        if hasattr(f.model, "Z"):
-            d["Z"] = _dist_to(f.model.Z)
+             "tags": sorted(f.tags), **_model_to(f.model)}
         factors.append(d)
     return {"params": dataclasses.asdict(fg.params), "variables": variables,
             "factors": factors}

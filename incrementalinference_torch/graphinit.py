@@ -2,20 +2,25 @@
 
 Counterpart of ``incrementalinference/jl_tpu/graphinit.py`` (reference
 src/services/GraphInit.jl: factorCanInitFromOtherVars, doautoinit!,
-initAll!, ensureSolvable!).
+initVariable!, resetInitialValues!, initAll!, ensureSolvable!).
 """
 
 from __future__ import annotations
 
 import logging
 
-from .beliefs import LazyPPE
+import numpy as np
+import torch
+
+from . import keys as _keys
+from .beliefs import Belief, LazyPPE
 from .models.factors import GenericMarginal, MetaPrior
 from .ops.graphops import propagate_belief
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["factor_can_init", "doautoinit", "init_all", "ensure_solvable"]
+__all__ = ["factor_can_init", "doautoinit", "init_variable",
+           "reset_initial_values", "init_all", "ensure_solvable"]
 
 
 def factor_can_init(fg, factor_label: str, target: str,
@@ -53,6 +58,39 @@ def doautoinit(fg, label: str, solve_key: str = "default") -> bool:
     fg.set_belief(label, belief.points, solve_key="graphinit",
                   bw=belief.bw, ipc=ipc, initialized=True)
     return True
+
+
+def init_variable(fg, label: str, value, solve_key: str = "default",
+                  bw=None) -> Belief:
+    """Initialize a variable by hand from a Belief, a distribution (N draws
+    from the graph's key stream) or points; one point is repeated N times
+    (reference initVariable!)."""
+    v = fg.var(label)
+    if isinstance(value, Belief):
+        pts, bw = value.points, value.bw
+    elif hasattr(value, "sample"):
+        pts = value.sample(_keys.generator(fg.next_key(), fg.device), v.N)
+    else:
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value, np.float32))
+        pts = value.to(device=fg.device, dtype=torch.float32)
+        if pts.ndim == 1:
+            pts = pts.expand((v.N,) + pts.shape).clone()
+    b = fg.set_belief(label, pts, solve_key=solve_key, bw=bw,
+                      initialized=True)
+    v.ppe[solve_key] = LazyPPE(v.manifold, b)
+    return b
+
+
+def reset_initial_values(fg, solve_key: str = "default",
+                         src_key: str = "graphinit") -> None:
+    """Restore every belief from its "graphinit" snapshot (reference
+    resetInitialValues!)."""
+    for lbl, v in fg.variables.items():
+        if src_key in v.beliefs:
+            b = v.beliefs[src_key]
+            fg.set_belief(lbl, b.points, solve_key=solve_key, bw=b.bw,
+                          ipc=b.ipc, initialized=True)
 
 
 def ensure_solvable(fg, solvable_target: int = 1,

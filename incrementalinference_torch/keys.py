@@ -45,6 +45,16 @@ def generator(key: int, device) -> torch.Generator:
     return g
 
 
+def spawn(gen: torch.Generator, n: int) -> List[torch.Generator]:
+    """``n`` independent generators derived from ``gen``, on its device and
+    in a fixed order.  The children are a function of ``gen``'s seed alone,
+    so ``gen`` is moved on to a further child seed: a second call on the
+    same generator gives other streams.  Host-side only (no device read)."""
+    *kids, nxt = split(gen.initial_seed(), n + 1)
+    gen.manual_seed(nxt)
+    return [generator(k, gen.device) for k in kids]
+
+
 def categorical(key: int, logits: torch.Tensor, n: int) -> torch.Tensor:
     """``n`` draws from the categorical with 1-D ``logits`` (inverse CDF:
     one uniform per draw, no (n, K) matrix — K is 50k on the large path)."""

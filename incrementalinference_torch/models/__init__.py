@@ -1,9 +1,9 @@
 """Factor models."""
 
-from .factors import (MODEL_REGISTRY, FactorModel, GenericMarginal,
-                      LinearRelative, MetaPrior, MsgPrior, Prior, PriorModel,
-                      register_factor_model)
+from .factors import (MODEL_REGISTRY, EuclidDistance, FactorModel,
+                      GenericMarginal, LinearRelative, MetaPrior, Mixture,
+                      MsgPrior, Prior, PriorModel, register_factor_model)
 
 __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
-           "MsgPrior", "MetaPrior", "GenericMarginal", "MODEL_REGISTRY",
-           "register_factor_model"]
+           "EuclidDistance", "Mixture", "MsgPrior", "MetaPrior",
+           "GenericMarginal", "MODEL_REGISTRY", "register_factor_model"]

@@ -1,8 +1,9 @@
 """Factor models of the nonparametric main path.
 
 Counterpart of ``incrementalinference/jl_tpu/models/factors.py`` for Prior,
-LinearRelative, MsgPrior, MetaPrior and GenericMarginal (the other models
-come with later slices).  A model exposes:
+LinearRelative, EuclidDistance, Mixture, MsgPrior, MetaPrior and
+GenericMarginal (the circular, partial and manifold models are not ported
+yet).  A model exposes:
 
 - ``sample(gen, n)``: n measurement rows ``(n, zdim)`` drawn with ``gen``;
 - ``residual(meas, *points)``: the residual, written with broadcasting
@@ -13,16 +14,18 @@ come with later slices).  A model exposes:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import keys as _keys
 from ..beliefs import Belief, kde_sample, mean_cov as belief_mean_cov
 from ..distributions import Distribution
 from ..manifolds import Manifold
 
 __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
-           "MsgPrior", "MetaPrior", "GenericMarginal", "MODEL_REGISTRY",
+           "EuclidDistance", "Mixture", "MsgPrior", "MetaPrior", "GenericMarginal", "MODEL_REGISTRY",
            "register_factor_model"]
 
 
@@ -99,6 +102,104 @@ class LinearRelative(FactorModel):
         return self.Z.mean_cov()
 
 
+class EuclidDistance(FactorModel):
+    """Range factor z - |x2 - x1| (reference src/Factors/EuclidDistance.jl):
+    a 1-D measurement over endpoints of any dimension, so ring-shaped and
+    multimodal posteriors."""
+
+    def __init__(self, Z: Distribution):
+        self.Z = Z
+
+    zdim = 1
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def residual(self, meas, x1, x2):
+        d = x2 - x1
+        return meas - torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)
+                                 + 1e-12)
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
+class Mixture(FactorModel):
+    """Mixture over any prior or relative (reference src/Factors/Mixture.jl):
+    a categorical label per sample chooses the component that generates
+    that measurement row; the residual is the mechanics'."""
+
+    def __init__(self, mechanics, components: Sequence[Distribution],
+                 diversity: Sequence[float] | None = None):
+        """``mechanics``: a FactorModel class (Prior, LinearRelative, ...)
+        or instance whose residual is reused; ``components``: the
+        measurement distribution of each mode; ``diversity``: the mode
+        weights (uniform when omitted)."""
+        if isinstance(mechanics, type):
+            mechanics = mechanics(components[0])
+        self.mechanics = mechanics
+        self.components = tuple(components)
+        w = (np.full((len(components),), 1.0 / len(components), np.float32)
+             if diversity is None else np.asarray(diversity, np.float32))
+        self.diversity = w / np.sum(w)
+        self.labels = None          # component labels of the last draw
+        self._on: dict = {}         # device -> diversity tensor
+
+    @property
+    def is_prior(self):
+        return self.mechanics.is_prior
+
+    @property
+    def linear_residual(self):
+        return getattr(self.mechanics, "linear_residual", False)
+
+    @property
+    def zdim(self):
+        return self.components[0].dim
+
+    @staticmethod
+    def select(draws: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Row i of component ``labels[i]``: draws (C, n, z) -> (n, z)."""
+        return draws[labels, torch.arange(labels.shape[0],
+                                          device=labels.device)]
+
+    def sample(self, gen, n):
+        """The label generator and one generator per component are derived
+        from ``gen`` in that order (keys.spawn)."""
+        g_lab, *g_comp = _keys.spawn(gen, 1 + len(self.components))
+        key = str(gen.device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.diversity,
+                                            device=gen.device)
+        labels = torch.multinomial(self._on[key], n, replacement=True,
+                                   generator=g_lab)
+        draws = torch.stack([c.sample(g, n)
+                             for c, g in zip(self.components, g_comp)])
+        self.labels = labels
+        return self.select(draws, labels)
+
+    def sample_points(self, gen, n, manifold):
+        return self.sample(gen, n)
+
+    def residual(self, meas, *points):
+        return self.mechanics.residual(meas, *points)
+
+    def mixture_mean_cov(self):
+        """Per-component (weights, means, covariances), host numpy."""
+        mus, covs = zip(*(c.mean_cov() for c in self.components))
+        return (self.diversity, np.stack([np.asarray(m) for m in mus]),
+                np.stack([np.asarray(c) for c in covs]))
+
+    def mean_cov(self):
+        """The moment-matched Gaussian."""
+        w, mus, covs = self.mixture_mean_cov()
+        m = np.sum(w[:, None] * mus, axis=0)
+        d = mus - m
+        cov = np.sum(w[:, None, None]
+                     * (covs + d[:, :, None] * d[:, None, :]), axis=0)
+        return m, cov
+
+
 class MsgPrior(PriorModel):
     """Prior carrying a KDE tree message (reference src/Factors/MsgPrior.jl)."""
 
@@ -169,6 +270,8 @@ def register_factor_model(cls, children: tuple = ("Z",)):
 
 register_factor_model(Prior, ("Z",))
 register_factor_model(LinearRelative, ("Z",))
+register_factor_model(EuclidDistance, ("Z",))
+register_factor_model(Mixture, ("mechanics", "components", "diversity"))
 register_factor_model(MsgPrior, ("belief", "ipc"))
 register_factor_model(MetaPrior, ())
 register_factor_model(GenericMarginal, ())

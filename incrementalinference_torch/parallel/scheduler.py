@@ -9,14 +9,25 @@ initialized from their parent's down message; the up sweep then re-runs
 over them and their ancestors and the down sweep repeats, at most
 ``SolverParams.limit_treeinit_iters`` times.
 
-Not ported yet: batched same-level solves, chain segments, clique recycling
-and the wildfire gate, fault injection, multi-device placement.
+Incremental solves: a clique recycled from the previous tree
+(tree/bayestree.py ``build_tree_reset``) re-emits its up message from the
+graph's beliefs instead of solving, and the wildfire gate
+(``SolverParams.wildfire_tol``) lets a recycled clique skip its down-solve
+when its incoming down message has not moved.  ``record_cliques`` keeps a
+:class:`CliqueTrace` per clique.
+
+Not ported yet: batched same-level solves, chain segments, fault injection
+and history files, multi-device placement.
 """
 
 from __future__ import annotations
 
 import logging
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from ..beliefs import LazyPPE
 from ..graph import FactorGraph, Variable
@@ -32,9 +43,21 @@ from .messages import (LikelihoodMessage, add_msg_factors, prep_msg_down,
 __all__ = ["build_clique_subgraph", "transfer_update_subgraph",
            "add_down_variable_factors", "up_solve_clique",
            "down_solve_clique", "solve_tree_sweeps",
-           "cliq_var_init_order_up"]
+           "cliq_var_init_order_up", "CliqueTrace"]
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class CliqueTrace:
+    """Per-clique record of the steps a solve took (the reference's CSM
+    history): ``events`` are (time, step, detail)."""
+
+    cid: int
+    events: List[Tuple[float, str, str]] = field(default_factory=list)
+
+    def log(self, step: str, detail: str = "") -> None:
+        self.events.append((time.time(), step, detail))
 
 
 def _copy_variable(v: Variable) -> Variable:
@@ -121,6 +144,54 @@ def transfer_update_subgraph(fg: FactorGraph, sub: FactorGraph,
         fg.set_belief(vl, b.points, solve_key=solve_key, bw=b.bw, ipc=b.ipc,
                       initialized=sv.is_initialized(solve_key))
         fg.var(vl).ppe[solve_key] = LazyPPE(sv.manifold, b)
+
+
+def _msg_summary(msg: LikelihoodMessage) -> dict:
+    """What the wildfire comparison needs of a down message, per variable:
+    (shape, mean (d,), mean per-dim std as a 0-d tensor).
+
+    The JAX package keeps references to the particle arrays, which are
+    immutable there.  A tensor can be written in place after the solve, so
+    the summary holds the statistics themselves: small tensors made on the
+    message's device with no read back to the host."""
+    out = {}
+    for vlbl, b in msg.beliefs.items():
+        sd, mean = torch.std_mean(b.points, dim=0, correction=0)
+        out[vlbl] = (tuple(b.points.shape), mean, sd.mean())
+    return out
+
+
+def _wildfire_stat(new: dict, old: dict) -> torch.Tensor:
+    """Max over the variables of |mean_new - mean_old| / max(spread_new,
+    spread_old, 1e-9): the gate statistic of a whole clique as one 0-d
+    tensor (the JAX package's ``_wildfire_stat_many``)."""
+    stats = []
+    for vlbl, (_, mn, sn) in new.items():
+        _, mo, so = old[vlbl]
+        stats.append(torch.linalg.norm(mn - mo)
+                     / torch.clamp(torch.maximum(sn, so), min=1e-9))
+    return torch.stack(stats).max()
+
+
+#: ``wildfire_tol="auto"`` turns the gate on, at this tolerance, once a tree
+#: has this many recycled cliques.  Both are the JAX package's values, kept
+#: so that the port takes the same branches; where the gate starts to pay
+#: on an H100 has not been measured.
+WILDFIRE_AUTO_MIN_RECYCLED = 64
+WILDFIRE_AUTO_TOL = 0.8
+
+
+def _wildfire_unchanged(new: dict, old: Optional[dict], tol: float) -> bool:
+    """True when every separator mean moved at most ``tol`` spreads: the
+    incoming down message carries nothing worth re-solving for (the iSAM2
+    wildfire threshold).  One device-to-host read."""
+    if old is None or set(new) != set(old):
+        return False
+    if any(new[v][0] != old[v][0] for v in new):
+        return False
+    if not new:
+        return True
+    return _wildfire_stat(new, old).item() <= tol
 
 
 def _use_chain(params) -> bool:
@@ -270,19 +341,37 @@ def _solve_clique_vars(sub: FactorGraph, direct: List[str],
 
 def up_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                     child_msgs: List[LikelihoodMessage],
-                    solve_key: str = "default") -> LikelihoodMessage:
+                    solve_key: str = "default",
+                    trace: Optional[CliqueTrace] = None
+                    ) -> LikelihoodMessage:
     """One clique up-solve (reference CSM preUpSolve_ → solveUp_ →
     postUpSolve_, Gibbs body of upGibbsCliqueDensity)."""
+    t = trace or CliqueTrace(clique.cid)
+
+    if clique.is_marginalized or (clique.is_recycled and
+                                  clique.status == CliqStatus.UPRECYCLED):
+        # recycled or marginalized: the message is the graph's beliefs
+        t.log("recycle", "skip up-solve")
+        msg = LikelihoodMessage(sender=clique.cid, status=clique.status,
+                                direction="up")
+        for vlbl in clique.separator:
+            msg.beliefs[vlbl] = fg.get_belief(vlbl, solve_key)
+        return msg
+
     sub = build_clique_subgraph(fg, clique)
+    t.log("build_subgraph", f"{len(sub.variables)} vars, "
+                            f"{len(sub.factors)} factors")
     for msg in child_msgs:
         if msg.status == CliqStatus.ERROR_STATUS:
             clique.status = CliqStatus.ERROR_STATUS
             raise RuntimeError(
                 f"clique {clique.cid}: child {msg.sender} errored")
         add_msg_factors(sub, msg)
+    t.log("add_msg_factors", f"{len(child_msgs)} child messages")
 
     if not _cycle_init_by_var_order(sub, clique, solve_key):
         # parents may still initialize it downward
+        t.log("no_init")
         clique.status = CliqStatus.NO_INIT
         msg = prep_msg_up(sub, clique, CliqStatus.NO_INIT, solve_key)
         transfer_update_subgraph(fg, sub, clique.frontals, solve_key)
@@ -290,22 +379,32 @@ def up_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
 
     _solve_clique_vars(sub, list(clique.direct_vars), clique.iter_vars,
                        solve_key)
+    t.log("up_gibbs", f"direct={len(clique.direct_vars)} "
+                      f"iter={len(clique.iter_vars)}")
     clique.status = CliqStatus.UPSOLVED
     msg = prep_msg_up(sub, clique, CliqStatus.UPSOLVED, solve_key)
     transfer_update_subgraph(fg, sub, clique.frontals, solve_key)
+    t.log("up_done")
     return msg
 
 
 def down_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                       down_msg: Optional[LikelihoodMessage],
                       solve_key: str = "default",
-                      child_msgs: Optional[List[LikelihoodMessage]] = None
+                      child_msgs: Optional[List[LikelihoodMessage]] = None,
+                      trace: Optional[CliqueTrace] = None
                       ) -> Dict[int, LikelihoodMessage]:
     """One clique down-solve (reference CSM down states; frontal products
     of solveCliqDownFrontalProducts!).  The children's up messages stay
     attached, as in the reference's down phase.  Returns the down messages
     for each child."""
+    t = trace or CliqueTrace(clique.cid)
     sub = build_clique_subgraph(fg, clique)
+    if clique.is_marginalized:
+        t.log("marginalized", "skip down-solve")
+        return {ch.cid: prep_msg_down(sub, clique, ch, clique.status,
+                                      solve_key)
+                for ch in tree.children(clique.cid)}
     # frontal neighbors widen the subgraph; descendants' frontals stay out
     # (their information arrives through the child up messages)
     add_down_variable_factors(fg, sub, clique,
@@ -333,10 +432,13 @@ def down_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                 sub.set_belief(vlbl, belief.points, solve_key=solve_key,
                                bw=belief.bw, ipc=belief.ipc)
         _cycle_init_by_var_order(sub, clique, solve_key)
-        clique.down_inited = any(sub.var(v).is_initialized(solve_key)
-                                 for v in pre_uninit)
+        newly = [v for v in pre_uninit
+                 if sub.var(v).is_initialized(solve_key)]
+        clique.down_inited = bool(newly)
+        t.log("down_init", f"{len(newly)}/{len(pre_uninit)} vars")
         if not all_init():
             transfer_update_subgraph(fg, sub, clique.frontals, solve_key)
+            t.log("down_no_init")
             return no_init_msgs()
     if down_msg is not None:
         add_msg_factors(sub, down_msg)
@@ -347,31 +449,69 @@ def down_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                 sub.var(vlbl).marginalized = True   # fixed in the down solve
     if not all_init():
         clique.status = CliqStatus.NO_INIT
+        t.log("down_no_init")
         return no_init_msgs()
+    t.log("down_start")
 
     iter_frontals = [v for v in clique.iter_vars if v in clique.frontals]
     direct_frontals = [v for v in clique.frontals if v not in iter_frontals]
     _solve_clique_vars(sub, direct_frontals, iter_frontals, solve_key)
+    t.log("down_gibbs", f"direct={len(direct_frontals)} "
+                        f"iter={len(iter_frontals)}")
     clique.status = CliqStatus.DOWNSOLVED
     transfer_update_subgraph(fg, sub, clique.frontals, solve_key)
-    return {ch.cid: prep_msg_down(sub, clique, ch, CliqStatus.DOWNSOLVED,
-                                  solve_key)
-            for ch in tree.children(clique.cid)}
+    out = {ch.cid: prep_msg_down(sub, clique, ch, CliqStatus.DOWNSOLVED,
+                                 solve_key)
+           for ch in tree.children(clique.cid)}
+    t.log("down_done")
+    return out
+
+
+def _resolve_wildfire_tol(params, tree: BayesTree) -> Tuple[float, bool]:
+    """(tolerance of this solve's gate, whether to record down-message
+    summaries).  0.0 is off: recycled cliques re-run their down pass, as in
+    the reference.  "auto" turns the gate on once the tree has
+    ``WILDFIRE_AUTO_MIN_RECYCLED`` recycled cliques, and records summaries
+    on every solve so that the first gated solve has a baseline."""
+    wtol = params.wildfire_tol
+    if isinstance(wtol, str):
+        if wtol != "auto":
+            raise ValueError(
+                f"SolverParams.wildfire_tol={wtol!r}: expected a float "
+                "tolerance, 0.0 (off, reference semantics) or \"auto\"")
+        n_recycled = sum(1 for c in tree.cliques.values()
+                         if c.is_recycled
+                         and c.status == CliqStatus.UPRECYCLED)
+        return (WILDFIRE_AUTO_TOL
+                if n_recycled >= WILDFIRE_AUTO_MIN_RECYCLED else 0.0), True
+    return float(wtol), wtol > 0.0
 
 
 def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                       solve_key: str = "default", up: bool = True,
-                      down: bool = True) -> None:
+                      down: bool = True) -> Dict[int, CliqueTrace]:
     """Up sweep (deepest level first), then down sweeps with the tree-init
     fixed point.  A clique whose solve raises is marked ERROR_STATUS, its
     error message floods the rest of the schedule, and the first error
-    re-raises after the sweeps."""
+    re-raises after the sweeps.  Returns the per-clique traces (empty
+    unless ``params.record_cliques``)."""
     if fg.params.use_msg_likelihoods:
         raise NotImplementedError(
             "use_msg_likelihoods (joint up messages) is not ported yet")
+    traces: Dict[int, CliqueTrace] = {}
     levels = tree.levels()
     up_msgs: Dict[int, LikelihoodMessage] = {}
     errors: List[Tuple[int, Exception]] = []
+
+    def trace_for(cid: int) -> CliqueTrace:
+        if fg.params.record_cliques:
+            return traces.setdefault(cid, CliqueTrace(cid))
+        return CliqueTrace(cid)
+
+    def failed(cl: Clique, tr: CliqueTrace, e: Exception) -> None:
+        cl.status = CliqStatus.ERROR_STATUS
+        tr.log("error", str(e))
+        errors.append((cl.cid, e))
 
     def run_up(only: Optional[set] = None) -> None:
         for level in reversed(levels):
@@ -383,12 +523,14 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                     continue
                 child_msgs = [up_msgs[ch] for ch in cl.children
                               if ch in up_msgs]
+                tr = trace_for(cid)
+                if only is not None:
+                    tr.log("re_up", "tree-init fixed point")
                 try:
                     up_msgs[cid] = up_solve_clique(fg, tree, cl, child_msgs,
-                                                   solve_key)
+                                                   solve_key, trace=tr)
                 except Exception as e:          # noqa: BLE001
-                    cl.status = CliqStatus.ERROR_STATUS
-                    errors.append((cid, e))
+                    failed(cl, tr, e)
                     up_msgs[cid] = LikelihoodMessage(
                         sender=cid, status=CliqStatus.ERROR_STATUS,
                         direction="up")
@@ -396,22 +538,63 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
     def run_down() -> set:
         down_msgs: Dict[int, LikelihoodMessage] = {}
         down_inited: set = set()
+        # cliques whose down pass left their beliefs as they were: a
+        # recycled child of one sees the down message of the last solve
+        down_unchanged: set = set()
+        wtol, record_summaries = _resolve_wildfire_tol(fg.params, tree)
+        # consults of the statistic (one device-to-host read each), the
+        # skips they gave, the skips the exact parent-unchanged rule gave,
+        # and the down-solves that ran
+        wf = tree.wildfire_stats = {"exact_skips": 0, "stat_syncs": 0,
+                                    "wildfire_skips": 0, "down_solves": 0}
         for level in levels:
             for cid in level:
                 cl = tree.clique(cid)
                 if cl.status == CliqStatus.ERROR_STATUS:
                     continue
+                tr = trace_for(cid)
+                incoming = down_msgs.get(cid)
+                summary = (_msg_summary(incoming)
+                           if record_summaries and incoming is not None
+                           else None)
+                sig = cl.signature()
+                skip = False
+                if (wtol > 0.0 and cl.is_recycled
+                        and cl.status == CliqStatus.UPRECYCLED):
+                    if cl.parent is None or cl.parent in down_unchanged:
+                        # exact: the parent's beliefs did not change
+                        tr.log("recycle", "skip down-solve")
+                        skip = True
+                        wf["exact_skips"] += 1
+                    elif summary is not None:
+                        wf["stat_syncs"] += 1
+                        if _wildfire_unchanged(
+                                summary, tree.down_cache.get(sig), wtol):
+                            tr.log("recycle", "wildfire skip down-solve")
+                            skip = True
+                            wf["wildfire_skips"] += 1
+                if summary is not None:
+                    tree.down_cache[sig] = summary
+                if skip:
+                    cl.status = CliqStatus.DOWNSOLVED
+                    for ch in tree.children(cid):
+                        down_msgs[ch.cid] = prep_msg_down(
+                            fg, cl, ch, CliqStatus.DOWNSOLVED, solve_key)
+                    down_unchanged.add(cid)
+                    continue
+                if cl.is_marginalized:
+                    down_unchanged.add(cid)
                 child_up = [up_msgs[ch] for ch in cl.children
                             if ch in up_msgs]
                 try:
+                    wf["down_solves"] += 1
                     down_msgs.update(down_solve_clique(
-                        fg, tree, cl, down_msgs.get(cid), solve_key,
-                        child_msgs=child_up))
+                        fg, tree, cl, incoming, solve_key,
+                        child_msgs=child_up, trace=tr))
                     if cl.down_inited:
                         down_inited.add(cid)
                 except Exception as e:          # noqa: BLE001
-                    cl.status = CliqStatus.ERROR_STATUS
-                    errors.append((cid, e))
+                    failed(cl, tr, e)
         tree.down_msgs = down_msgs
         return down_inited
 
@@ -453,3 +636,4 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
         raise RuntimeError(
             f"clique solves failed for {[c for c, _ in errors]}: "
             f"{errors[0][1]}") from errors[0][1]
+    return traces

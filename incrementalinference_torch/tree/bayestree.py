@@ -2,8 +2,8 @@
 
 Counterpart of ``incrementalinference/jl_tpu/tree/bayestree.py`` (reference
 JunctionTreeUtils.jl: buildTree!/newPotential, buildTreeFromOrdering!,
-setCliqPotentials!, setCliqMCIDs!).  Clique recycling against an old tree
-is not ported yet: every solve builds a fresh tree.
+setCliqPotentials!, setCliqMCIDs!, and clique recycling against the tree of
+the previous solve: buildTreeReset!, attemptTreeSimilarClique).
 """
 
 from __future__ import annotations
@@ -11,12 +11,13 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .bayesnet import Conditional, build_bayes_net
 from .ordering import get_elimination_order
 
-__all__ = ["CliqStatus", "Clique", "BayesTree", "build_tree"]
+__all__ = ["CliqStatus", "Clique", "BayesTree", "build_tree",
+           "build_tree_reset"]
 
 
 class CliqStatus(str, Enum):
@@ -43,6 +44,8 @@ class Clique:
     children: List[int] = field(default_factory=list)
     potentials: List[str] = field(default_factory=list)
     status: CliqStatus = CliqStatus.NULL
+    is_recycled: bool = False
+    is_marginalized: bool = False
     # Gibbs partitions (reference setCliqMCIDs!)
     direct_vars: List[str] = field(default_factory=list)
     iter_vars: List[str] = field(default_factory=list)
@@ -54,6 +57,12 @@ class Clique:
     def all_vars(self) -> List[str]:
         return self.frontals + self.separator
 
+    def signature(self) -> Tuple:
+        """Recycling identity: frontals, separator and potentials
+        (reference attemptTreeSimilarClique match rule)."""
+        return (tuple(sorted(self.frontals)), tuple(sorted(self.separator)),
+                tuple(sorted(self.potentials)))
+
 
 class BayesTree:
     """Reference MetaBayesTree."""
@@ -64,6 +73,11 @@ class BayesTree:
         self.elimination_order: List[str] = []
         self.conditionals: List[Conditional] = []
         self.build_time: float = 0.0
+        # down-message summaries of the previous solve by clique signature,
+        # read by the wildfire down-solve gate (SolverParams.wildfire_tol)
+        self.down_cache: Dict[Tuple, dict] = {}
+        # per-clique traces of the last solve (SolverParams.record_cliques)
+        self.traces: Dict[int, object] = {}
         # up/down messages of the last sweep, for introspection
         self.up_msgs: Dict[int, object] = {}
         self.down_msgs: Dict[int, object] = {}
@@ -108,6 +122,9 @@ class BayesTree:
     def clique(self, cid: int) -> Clique:
         return self.cliques[cid]
 
+    def clique_of(self, frontal: str) -> Clique:
+        return self.cliques[self.frontal_to_clique[frontal]]
+
     def children(self, cid: int) -> List[Clique]:
         return [self.cliques[c] for c in self.cliques[cid].children]
 
@@ -128,6 +145,19 @@ class BayesTree:
 
     def num_cliques(self) -> int:
         return len(self.cliques)
+
+    def delete_clique(self, cid: int) -> Clique:
+        """Remove a clique; its children become roots and its frontals are
+        unindexed (reference deleteClique!)."""
+        cl = self.cliques.pop(cid)
+        for ch in cl.children:
+            self.cliques[ch].parent = None
+        if cl.parent is not None and cl.parent in self.cliques:
+            par = self.cliques[cl.parent]
+            par.children = [c for c in par.children if c != cid]
+        for f in cl.frontals:
+            self.frontal_to_clique.pop(f, None)
+        return cl
 
     def __repr__(self):
         return (f"BayesTree({len(self.cliques)} cliques, "
@@ -230,4 +260,53 @@ def build_tree(fg, order: Optional[Sequence[str]] = None,
     _assign_potentials(fg, tree)
     _partition_gibbs_vars(fg, tree)
     tree.build_time = time.time() - t0
+    return tree
+
+
+_RECYCLABLE = (CliqStatus.UPSOLVED, CliqStatus.DOWNSOLVED,
+               CliqStatus.UPRECYCLED, CliqStatus.MARGINALIZED)
+
+
+def build_tree_reset(fg, order: Optional[Sequence[str]] = None,
+                     method: Optional[str] = None,
+                     old_tree: Optional[BayesTree] = None) -> BayesTree:
+    """Rebuild the tree and mark the cliques that can be recycled from
+    ``old_tree`` (reference buildTreeReset! + attemptTreeSimilarClique)."""
+    tree = build_tree(fg, order=order, method=method)
+    if old_tree is None:
+        return tree
+    # carry over only the summaries of signatures the new tree still has: a
+    # plain copy would grow with every signature a growing graph ever had
+    live = {c.signature() for c in tree.cliques.values()}
+    tree.down_cache = {sig: s for sig, s in old_tree.down_cache.items()
+                       if sig in live}
+    if not fg.params.incremental:
+        return tree
+    old_by_sig = {c.signature(): c for c in old_tree.cliques.values()}
+    for cl in tree.cliques.values():
+        old = old_by_sig.get(cl.signature())
+        if old is None:
+            continue
+        if old.status in _RECYCLABLE:
+            cl.is_recycled = True
+            cl.status = CliqStatus.UPRECYCLED
+        if old.is_marginalized:
+            cl.is_marginalized = True
+            cl.status = CliqStatus.MARGINALIZED
+
+    # an up message depends on every descendant's up-solve: a clique stays
+    # recycled only if its whole subtree is (post-order, explicit stack)
+    stack = [(r, False) for r in tree.root_ids]
+    while stack:
+        cid, expanded = stack.pop()
+        cl = tree.cliques[cid]
+        if not expanded:
+            stack.append((cid, True))
+            stack.extend((ch, False) for ch in cl.children)
+            continue
+        ok = all(tree.cliques[ch].is_recycled
+                 or tree.cliques[ch].is_marginalized for ch in cl.children)
+        if cl.is_recycled and not ok:
+            cl.is_recycled = False
+            cl.status = CliqStatus.NULL
     return tree

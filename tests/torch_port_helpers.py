@@ -42,10 +42,24 @@ def t(a) -> torch.Tensor:
 
 
 def _dist(z) -> dict:
-    mu = np.asarray(z.mu)
-    if type(z).__name__ == "Normal":
-        return {"type": "Normal", "mu": float(mu), "sigma": float(z.sigma)}
-    return {"type": "MvNormal", "mu": mu, "cov": np.asarray(z.cov)}
+    """A JAX-package distribution as convert.py's distribution dict."""
+    from incrementalinference_torch.convert import _DIST_FIELDS
+
+    name = type(z).__name__
+    if name == "ManifoldKernelDensity":
+        return {"type": name, "dof": z.manifold.dof,
+                "points": np.asarray(z.belief.points),
+                "bw": np.asarray(z.belief.bw)}
+    return {"type": name,
+            **{f: np.asarray(getattr(z, f)) for f in _DIST_FIELDS[name]}}
+
+
+def _model(model) -> dict:
+    if type(model).__name__ == "Mixture":
+        return {"mechanics": type(model.mechanics).__name__,
+                "components": [_dist(c) for c in model.components],
+                "diversity": np.asarray(model.diversity)}
+    return {"Z": _dist(model.Z)} if hasattr(model, "Z") else {}
 
 
 def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
@@ -68,9 +82,7 @@ def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
              "variables": list(f.variables),
              "multihypo": None if f.multihypo is None else list(f.multihypo),
              "nullhypo": f.nullhypo, "solvable": f.solvable,
-             "tags": sorted(f.tags)}
-        if hasattr(f.model, "Z"):
-            d["Z"] = _dist(f.model.Z)
+             "tags": sorted(f.tags), **_model(f.model)}
         factors.append(d)
     params = {k: v for k, v in dataclasses.asdict(fg.params).items()}
     return {"params": params, "variables": variables, "factors": factors}
