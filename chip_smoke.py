@@ -15,7 +15,10 @@ Phases (any failure exits non-zero before the result line; none is caught):
    zero-precision partial-dims case, n = 65536, the N = 50k solve's shape,
    and the cases its base-2 lazy-rescale arithmetic could get wrong (rows
    far from every B kernel, one near column among far ones, Nb under a
-   warp at dof 8, all precisions zero); bar:
+   warp at dof 8, all precisions zero), and tangent coordinates of real
+   SE(2) and SE(3) proposals at dof 3 and dof 6 (those far from their
+   reference point are held against float64 instead, see
+   phase_conditioning); bar:
    max|kernel - plain| / max(max|plain|, 1) <= 1e-5, every output finite;
 3. solve LineStep(20) at N = 100 through ``solve_tree`` on CUDA, with the
    bars of tests/test_fused_chain.py (|mean(x_i) - i| < 1.5);
@@ -33,12 +36,22 @@ Phases (any failure exits non-zero before the result line; none is caught):
    recycled count grows; ``wildfire_stats`` of both printed); the
    range-only graph (EuclidDistance, dof 2, the LM branch of the
    convolution) at the bars of tests/test_solve.py:181-193;
-6. time the kernel, its plain version and one library route
-   (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, and the
-   kernel beside its bound at four more (n, dof);
-7. profile one more warm solve of the LineStep and the two-variable
-   configuration (torch.profiler): device busy share, the ten device
-   operations and the ten host operators with the most time.
+6. curved manifolds: the SE(2) hexagon (7 poses, a landmark, a loop
+   closure) at N = 100, cold and warm (Karcher means of x1, x3, x6 within
+   1.5 of the ideal hexagon's poses); the circular chain of
+   tests/test_manifold_solves.py:14-33 at its bars; the two-variable graph
+   on SE(2) at N = 50,000 and on SE(3) at N = 33,000 (a ManifoldPrior on
+   each pose, a ManifoldFactor between them), whose products go through the
+   kernel at dof 3 and dof 6 (launches must grow; Karcher means within 0.2
+   of truth, per-dof tangent std within (0.2, 1.5) x the prior's);
+   LineStep(20) once more with joint up-messages (use_msg_likelihoods);
+7. time the kernel, its plain version and one library route
+   (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
+   same three on the inputs the SE(2) and SE(3) solves handed the kernel,
+   and the kernel beside its bound at four more (n, dof);
+8. profile one more warm solve of the LineStep, the two-variable, and the
+   SE(2) and SE(3) configurations (torch.profiler): device busy share, the
+   ten device operations and the ten host operators with the most time.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object of per-kernel numbers, and
@@ -47,6 +60,7 @@ JSON object of per-kernel numbers, and
 
 import collections
 import json
+import math
 import os
 import re
 import shutil
@@ -140,6 +154,115 @@ def extreme_cases(gen, dev):
     return cases
 
 
+_SE2_STEP = [10.0, 0.0, math.pi / 3]
+_SE2_SIGMA = [0.5, 0.5, 0.05]
+_SE3_STEP = [10.0, 0.0, 0.0, 0.0, 0.0, math.pi / 3]
+_SE3_SIGMA = [0.5] * 3 + [0.05] * 3
+
+
+def _manifold_setups():
+    from incrementalinference_torch.manifolds import SE2, SE3
+    return ((SE2(), "Pose2", _SE2_STEP, _SE2_SIGMA, 50_000),
+            (SE3(), "Pose3", _SE3_STEP, _SE3_SIGMA, 33_000))
+
+
+def manifold_cases(gen, dev):
+    """Kernel inputs made as the cascade makes them (ops/fused.py
+    product_traceable) from SE(2) and SE(3) proposals: tangent coordinates
+    at a reference point and LOO bandwidths.  Returns (cases, probes).
+    Cases, held to the kernel's bar: the two proposals the two-variable
+    solves multiply at x1 (a prior at the composed pose; the other pose's
+    prior pushed through the step) seen from their pooled Karcher mean, at
+    the solves' particle counts; and the same two proposals under a weak
+    prior (sigma 30 in translation, 1 or 0.5 rad in rotation), where angles
+    of order 1 sit beside translations of order 10 to 100.  Probes: poses on
+    the corners of the hexagonal graph's hexagon (side 10, and side 50)
+    seen from the identity: several modes, each many bandwidths from the
+    reference point (see phase_conditioning)."""
+    from incrementalinference_torch.beliefs import loo_bandwidth
+
+    def randn(n, sigma):
+        return torch.randn((n, len(sigma)), generator=gen, device=dev) \
+            * torch.tensor(sigma, device=dev)
+
+    def terms(M, ref, ptsA, ptsB):
+        out = []
+        for pts in (ptsA, ptsB):
+            t = M.log(ref[None, :], pts)
+            prec = 1.0 / torch.clamp(loo_bandwidth(M, pts) ** 2, min=1e-12)
+            out += [t, prec.expand(t.shape).contiguous()]
+        return out
+
+    cases, probes = [], []
+    for M, name, step, sigma, n in _manifold_setups():
+        step_t = torch.tensor(step, device=dev)
+        x1 = M.exp(M.identity(dev), step_t)
+
+        def product_at_x1(n, prior_sigma):
+            ident = M.identity(dev).expand(n, M.point_dim)
+            prior = M.exp(x1.expand(n, M.point_dim), randn(n, prior_sigma))
+            pushed = M.exp(M.exp(ident, randn(n, prior_sigma)),
+                           step_t + randn(n, sigma))
+            ref = M.mean(torch.cat([prior, pushed]))
+            return terms(M, ref, prior, pushed)
+
+        m = 8192
+        weak = {"Pose2": [30.0, 30.0, 1.0],
+                "Pose3": [30.0] * 3 + [0.5] * 3}[name]
+        cases.append((*product_at_x1(n, sigma),
+                      f"{name} product at x1, n {n}, dof {M.dof}"))
+        cases.append((*product_at_x1(m, weak),
+                      f"{name} product under a weak prior, n {m}, "
+                      f"dof {M.dof}"))
+        for side in (step[0], 5.0 * step[0]):
+            corners, p = [], M.identity(dev)
+            for _ in range(6):
+                p = M.exp(p, torch.tensor([side] + step[1:], device=dev))
+                corners.append(p)
+            which = torch.randint(0, 6, (m,), generator=gen, device=dev)
+            big = [4.0 * x for x in sigma]
+            ptsA = M.exp(torch.stack(corners)[which], randn(m, big))
+            ptsB = M.exp(torch.stack(corners)[which.flip(0)], randn(m, big))
+            probes.append((*terms(M, M.identity(dev), ptsA, ptsB),
+                           f"{name} hexagon of side {side:g} seen from the "
+                           f"identity, n {m}, dof {M.dof}"))
+    return cases, probes
+
+
+def phase_conditioning(K, probes):
+    """Where float32 ends for the expanded form of the weights.  logW is
+    -0.5 (a2 + iva.b^2 - 2 ivmuA.b): three terms of size max(a2) that cancel
+    to a difference of order 1, so coordinates far from their reference
+    point (in bandwidths) cost digits in the kernel and in its plain
+    version alike.  The cascade never does that (it takes tangents at the
+    pooled mean, ops/fused.py product_traceable); this phase shows what a
+    caller who did would get.  Each is held against the difference form
+    -0.5 sum ivar (a - b)^2 in float64; bar: absolute error of the kernel
+    at most 16 float32 roundings of max(a2)."""
+    eps = torch.finfo(torch.float32).eps
+    for muA, precA, muB, precB, tag in probes:
+        a2, iva, ivm = K.pair_row_terms(muA, precA, muB, precB)
+        got = K.row_logsumexp(a2, iva, ivm, muB.contiguous())
+        plain = K.row_logsumexp_plain(a2, iva, ivm, muB)
+        ivar = iva.double()
+        truth = torch.empty_like(got, dtype=torch.float64)
+        for i in range(0, muA.shape[0], 1024):
+            d = muA[i:i + 1024, None, :].double() - muB[None].double()
+            truth[i:i + 1024] = torch.logsumexp(
+                -0.5 * (ivar[i:i + 1024, None, :] * d * d).sum(-1), dim=1)
+        err_k = float((got.double() - truth).abs().max())
+        err_p = float((plain.double() - truth).abs().max())
+        bar = 16 * eps * float(a2.max())
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+        check(err_k <= bar, f"{tag}: kernel off the float64 difference form "
+                            f"by {err_k:.3e} (bar {bar:.3e})")
+        print(f"conditioning {tag}: max a2 {float(a2.max()):.1f}, max |lse| "
+              f"{float(truth.abs().max()):.1f}; abs err against the float64 "
+              f"difference form: kernel {err_k:.3e}, plain {err_p:.3e} (bar "
+              f"{bar:.3e}); kernel vs plain rel err "
+              f"{rel_err(got, plain):.3e}", flush=True)
+
+
 def phase_compare(K, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -159,6 +282,8 @@ def phase_compare(K, dev):
     _, _, muB, precB = inputs(gen, 5003, 2, dev)
     cases.append((muA, precA, muB, precB, "dof 2, Na 3000, Nb 5003"))
     cases.extend(extreme_cases(gen, dev))
+    manifold, probes = manifold_cases(gen, dev)
+    cases.extend(manifold)
     for muA, precA, muB, precB, tag in cases:
         a2, iva, ivm = K.pair_row_terms(muA, precA, muB, precB)
         t0 = time.time()
@@ -172,7 +297,9 @@ def phase_compare(K, dev):
         print(f"kernel vs plain {tag}: rel err {err:.3e} "
               f"({dt * 1e3:.2f} ms first call)", flush=True)
     check(worst <= _TOL, f"kernel disagrees with plain: {worst:.3e}")
-    print(f"PASS kernel vs plain: worst rel err {worst:.3e} <= {_TOL}")
+    print(f"PASS kernel vs plain: worst rel err {worst:.3e} <= {_TOL} over "
+          f"{len(cases)} cases")
+    phase_conditioning(K, probes)
 
 
 def phase_linestep(it, K):
@@ -350,6 +477,161 @@ def phase_euclid(it, dev):
           f"{r1:.2f}, {r2:.2f}", flush=True)
 
 
+def phase_hexagonal(it):
+    """The SE(2) hexagon with its landmark loop closure at N = 100, cold
+    and warm.  The JAX package's test holds the Karcher means of x1, x3
+    and x6 within 1.5 (SE(2) dist) of the parametric optimum; here the
+    ideal hexagon, composed from the noiseless step, stands in for it."""
+    se2 = it.SE2()
+    step = torch.tensor(_SE2_STEP, device="cuda")
+    ideal, p = {}, se2.identity("cuda")
+    for i in range(1, 7):
+        p = se2.exp(p, step)
+        ideal[f"x{i}"] = p
+    walls = []
+    for _ in range(2):
+        t_build = time.time()
+        fg = it.generate_hexagonal(graphinit=True, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        it.solve_tree(fg)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        dists = {}
+        for v in ("x1", "x3", "x6"):
+            mu = se2.mean(fg.points(v))
+            dists[v] = float(se2.dist(mu, ideal[v]))
+            check(dists[v] < 1.5, f"hexagonal {v}: {dists[v]} from the "
+                                  f"ideal pose (bar 1.5)")
+    print(f"PASS hexagonal N=100 solve_tree on CUDA: cold {walls[0]:.3f} s, "
+          f"warm {walls[1]:.3f} s (graph build with graphinit "
+          f"{t0 - t_build:.3f} s); SE(2) dist of the Karcher means from the "
+          f"ideal hexagon { {k: round(v, 3) for k, v in dists.items()} }",
+          flush=True)
+    return walls
+
+
+def phase_circular(it):
+    """tests/test_manifold_solves.py:14-33: five steps of 2 pi / 5 around
+    the circle; estimates wrap instead of running past pi."""
+    fg = it.initfg(device="cuda")
+    fg.add_variable("c0", it.Circular)
+    fg.add_factor(["c0"], it.PriorCircular(it.Normal(0.0, 0.05)))
+    step = 2.0 * math.pi / 5.0
+    for i in range(1, 6):
+        fg.add_variable(f"c{i}", it.Circular)
+        fg.add_factor([f"c{i - 1}", f"c{i}"],
+                      it.CircularCircular(it.Normal(step, 0.05)))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    it.solve_tree(fg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    shares = []
+    for i in range(6):
+        d = it.manifolds.wrap_angle(fg.points(f"c{i}")[:, 0] - i * step)
+        shares.append(float((d.abs() < 0.5).float().mean()))
+        check(shares[-1] > 0.85, f"circular c{i}: {shares[-1]} within 0.5")
+    print(f"PASS circular chain N=100 on CUDA: {wall:.3f} s; share within "
+          f"0.5 rad of i * 2 pi / 5 (wrapped): {shares}", flush=True)
+
+
+def _two_pose_graph(it, M, name, step, sigma, N):
+    """_two_var_graph on a group manifold: a ManifoldPrior on each pose and
+    a ManifoldFactor between them, so every variable has two proposals."""
+    vt = it.VariableType(name, M)
+    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device="cuda")
+    ident = M.identity()
+    x1 = M.exp(ident, torch.tensor(step))
+    noise = it.MvNormal([0.0] * M.dof, sigma)
+    fg.add_variable("x0", vt)
+    fg.add_factor(["x0"], it.ManifoldPrior(M, ident, noise))
+    fg.add_variable("x1", vt)
+    fg.add_factor(["x0", "x1"], it.ManifoldFactor(M, it.MvNormal(step,
+                                                                sigma)))
+    fg.add_factor(["x1"], it.ManifoldPrior(M, x1, noise))
+    return fg, {"x0": ident.cuda(), "x1": x1.cuda()}
+
+
+def phase_manifold_large(it, K, M, name, step, sigma, N):
+    """The two-pose graph at a size where every product is a large pair
+    product at dof 3 (SE(2)) or 6 (SE(3)).  Returns (walls, launches of the
+    warm solve, the last inputs the solve handed the kernel's wrapper)."""
+    from incrementalinference_torch.ops import product
+
+    check(N * N >= product.LARGE_PAIR_THRESHOLD,
+          f"{name}: N={N} no longer exceeds the large-pair threshold")
+    handed = []
+    wrapper = product.pair_row_logsumexp
+
+    def recording(muA, precA, muB, precB):
+        handed[:] = [muA, precA, muB, precB]
+        return wrapper(muA, precA, muB, precB)
+
+    walls, launches = [], []
+    product.pair_row_logsumexp = recording
+    try:
+        for _ in range(2):
+            K.reset_counts()
+            fg, truth = _two_pose_graph(it, M, name, step, sigma, N)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            it.solve_tree(fg)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            launches.append(K.counts["launches"])
+            check(launches[-1] > 0, f"the {name} N={N} solve never launched "
+                                    f"the row_logsumexp kernel")
+            stats = {}
+            for v, want in truth.items():
+                pts = fg.points(v)
+                check(bool(torch.isfinite(pts).all()), f"{name} {v}: "
+                      "non-finite particles")
+                mu = M.mean(pts)
+                ratio = (M.log(mu[None, :], pts).std(0)
+                         / torch.tensor(sigma, device="cuda"))
+                stats[v] = (round(float(M.dist(mu, want)), 4),
+                            [round(float(r), 3) for r in ratio])
+                check(stats[v][0] < 0.2, f"{name} {v}: Karcher mean "
+                                         f"{stats[v][0]} from truth")
+                check(0.2 < min(stats[v][1]) and max(stats[v][1]) < 1.5,
+                      f"{name} {v}: tangent std / prior std {stats[v][1]}")
+    finally:
+        product.pair_row_logsumexp = wrapper
+    check(handed and handed[0].shape == (N, M.dof),
+          f"{name}: the kernel was not handed ({N}, {M.dof}) inputs")
+    print(f"PASS {name} two-pose graph N={N} (dof {M.dof}) solve_tree on "
+          f"CUDA through the kernel: cold {walls[0]:.3f} s, warm "
+          f"{walls[1]:.3f} s; launches per solve {launches}; (dist of the "
+          f"Karcher mean from truth, tangent std / prior std) {stats}",
+          flush=True)
+    return walls, launches[-1], [t.clone() for t in handed]
+
+
+def phase_joint(it):
+    """LineStep(20) with joint up-messages: solved up messages carry
+    relative likelihoods between separator pairs (use_msg_likelihoods)."""
+    fg = it.generate_line_step(
+        20, graphinit=True, device="cuda",
+        params=it.SolverParams(use_msg_likelihoods=True))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tree = it.solve_tree(fg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    joint = [m.jointmsg for m in tree.up_msgs.values()
+             if m.jointmsg is not None]
+    check(joint, "no up message carried a joint payload")
+    means = {i: float(fg.points(f"x{i}").mean()) for i in range(0, 21, 2)}
+    for i, m in means.items():
+        check(abs(m - i) < 1.5, f"joint LineStep x{i}: mean {m} (bar 1.5)")
+    print(f"PASS LineStep(20) N=100 with joint up-messages on CUDA: "
+          f"{wall:.3f} s; {len(joint)} up messages with a joint payload, "
+          f"{sum(len(j.relatives) for j in joint)} relatives and "
+          f"{sum(len(j.priors) for j in joint)} priors in them; pose means "
+          f"{ {k: round(v, 3) for k, v in means.items()} }", flush=True)
+
+
 def timing_inputs(K, n, dof, dev):
     """Row terms shaped like the solve's products: unit-scale particles,
     bandwidth ~ 0.3."""
@@ -376,17 +658,15 @@ def bound_ms(n, dof):
     return max(t_bytes, t_flops, t_exp), t_bytes, t_flops, t_exp
 
 
-def phase_timing(K, dev, launches, launches_by_path):
-    """Kernel, plain and library times at the main path's shape, and the
-    kernel beside its bound at four more shapes."""
-    n, dof = 50_000, 1
-    a2, iva, ivm, muB = timing_inputs(K, n, dof, dev)
-
+def time_three_ways(K, a2, iva, ivm, muB, tag):
+    """Kernel, plain version and library route on one set of row terms:
+    their agreement and CUDA-event times, beside the bound of the shape."""
+    n, dof = muB.shape
     got = K.row_logsumexp(a2, iva, ivm, muB)
     ref = K.row_logsumexp_plain(a2, iva, ivm, muB)
     max_abs = float((got - ref).abs().max())
     rel = rel_err(got, ref)
-    check(rel <= _TOL, f"50k kernel vs plain rel err {rel:.3e}")
+    check(rel <= _TOL, f"{tag}: kernel vs plain rel err {rel:.3e}")
 
     k_ms = cuda_ms(lambda: K.row_logsumexp(a2, iva, ivm, muB), reps=20)
     p_ms = cuda_ms(lambda: K.row_logsumexp_plain(a2, iva, ivm, muB), reps=5)
@@ -397,16 +677,40 @@ def phase_timing(K, dev, launches, launches_by_path):
         return torch.logsumexp(w, dim=1)
 
     lib_out = library()
-    check(rel_err(lib_out, ref) <= _TOL, "library route disagrees")
+    check(rel_err(lib_out, ref) <= _TOL, f"{tag}: library route disagrees")
     del lib_out
     l_ms = cuda_ms(library, reps=3, warmup=1)
     torch.cuda.empty_cache()
 
     bound, t_bytes, t_flops, t_exp = bound_ms(n, dof)
-    print(f"row_logsumexp 50k x 50k dof 1: kernel {k_ms:.4f} ms, plain "
+    print(f"row_logsumexp {tag}: kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, library {l_ms:.4f} ms; bound {bound:.4f} ms "
           f"(bytes {t_bytes:.5f}, fp32 {t_flops:.4f}, exp {t_exp:.4f} ms); "
           f"max abs err {max_abs:.3e}, rel {rel:.3e}", flush=True)
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= max(t_flops, t_exp)
+            else "operations",
+            "library_ms": l_ms}
+
+
+def phase_timing(K, dev, launches, launches_by_path, handed_by_path):
+    """Kernel, plain and library times at the main path's shape and on the
+    inputs the SE(2) and SE(3) solves handed the kernel, and the kernel
+    beside its bound at four more shapes."""
+    main = time_three_ways(K, *timing_inputs(K, 50_000, 1, dev),
+                           "50k x 50k dof 1")
+    by_shape = []
+    for path, (n_launches, handed) in handed_by_path.items():
+        a2, iva, ivm = K.pair_row_terms(*handed)
+        muB = handed[2].contiguous()
+        entry = time_three_ways(
+            K, a2.contiguous(), iva.contiguous(), ivm.contiguous(), muB,
+            f"{path}, {muB.shape[0]} x {muB.shape[0]} dof {muB.shape[1]} "
+            f"(the solve's own inputs)")
+        by_shape.append({"path": path, "n": muB.shape[0],
+                         "dof": muB.shape[1], "launches": n_launches,
+                         **entry})
     for n2, dof2 in ((50_000, 3), (65_536, 3), (33_000, 6), (50_000, 8)):
         args = timing_inputs(K, n2, dof2, dev)
         ms = cuda_ms(lambda: K.row_logsumexp(*args), reps=20)
@@ -420,11 +724,7 @@ def phase_timing(K, dev, launches, launches_by_path):
             "replaces": "incrementalinference/jl_tpu/ops/kernels/"
                         "pallas_product.py:27",
             "launches": launches, "launches_by_path": launches_by_path,
-            "max_abs_err": max_abs, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= max(t_flops, t_exp)
-            else "operations",
-            "library_ms": l_ms}
+            **main, "by_shape": by_shape}
 
 
 def phase_sass(K, dof=1):
@@ -489,18 +789,22 @@ def _device_busy_us(spans):
     return busy
 
 
-def phase_profile(it, name, make_graph):
+def phase_profile(it, name, make_graph, host=True):
     """One more warm solve under torch.profiler: the share of the window
     in which the device was busy, and where device and host time went.
     The profiler's own hooks slow the host, so the window is longer than
-    the warm wall printed above."""
+    the warm wall printed above.  ``host=False`` traces the device only:
+    a solve of several hundred thousand launches stays near its own wall,
+    and the host operators are not listed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fg = make_graph()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.time()
         it.solve_tree(fg)
         torch.cuda.synchronize()
@@ -523,13 +827,14 @@ def phase_profile(it, name, make_graph):
     for op, (calls, total) in sorted(device.items(),
                                      key=lambda kv: -kv[1][1])[:10]:
         print(f"    {calls:7d} {total / 1e3:10.3f}  {op[:100]}")
-    host = [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CPU]
-    print(f"  top host operators of {name} by self CPU time "
-          f"(calls, self ms):")
-    for a in sorted(host, key=lambda a: -a.self_cpu_time_total)[:10]:
-        print(f"    {a.count:7d} {a.self_cpu_time_total / 1e3:10.3f}  "
-              f"{a.key[:100]}")
+    if host:
+        ops = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CPU]
+        print(f"  top host operators of {name} by self CPU time "
+              f"(calls, self ms):")
+        for a in sorted(ops, key=lambda a: -a.self_cpu_time_total)[:10]:
+            print(f"    {a.count:7d} {a.self_cpu_time_total / 1e3:10.3f}  "
+                  f"{a.key[:100]}")
     sys.stdout.flush()
 
 
@@ -570,14 +875,29 @@ def main() -> int:
           f"the N=50k fourdoor solves never launched the row_logsumexp "
           f"kernel: {fd_launches}")
     phase_euclid(it, "cuda")
+    phase_hexagonal(it)
+    phase_circular(it)
+    by_path, handed_by_path = {}, {}
+    for M, name, step, sigma, N in _manifold_setups():
+        _, n_launches, handed = phase_manifold_large(it, K, M, name, step,
+                                                     sigma, N)
+        path = f"{name} two-pose N={N}, one solve"
+        by_path[path] = n_launches
+        handed_by_path[path] = (n_launches, handed)
+    phase_joint(it)
     entry = phase_timing(K, dev, launches, {
         "two-variable N=50000, one solve": launches,
-        "fourdoor N=50000, solves 1-3": fd_launches})
+        "fourdoor N=50000, solves 1-3": fd_launches, **by_path},
+        handed_by_path)
+    del handed_by_path
     from incrementalinference_torch.canonical import generate_line_step
     phase_profile(it, "LineStep(20) N=100", lambda: generate_line_step(
         20, graphinit=True, device="cuda"))
     phase_profile(it, "two-variable N=50000",
                   lambda: _two_var_graph(it, 50_000))
+    for M, name, step, sigma, N in _manifold_setups():
+        phase_profile(it, f"{name} two-pose N={N}", lambda: _two_pose_graph(
+            it, M, name, step, sigma, N)[0], host=False)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,22 +9,37 @@ CUDA kernel (ops/kernels/csrc/row_lse.cu).
 from .api import (approx_cliq_marginal_up, fifo_freeze, set_ppe,
                   solve_cliq_down, solve_cliq_up,
                   solve_cliq_with_state_machine, solve_graph, solve_tree)
+from . import manifolds
 from .beliefs import Belief, make_belief
 from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
-                        generate_euclid_distance, generate_kaess,
-                        generate_line_step, generate_test_symbolic)
+                        generate_euclid_distance, generate_hexagonal,
+                        generate_kaess, generate_line_step,
+                        generate_test_symbolic)
 from .config import SolverParams, resolve_device
 from .convert import graph_from_arrays, graph_to_arrays
 from .distributions import (AliasingScalarSampler, Categorical,
                             ManifoldKernelDensity, MvNormal, Normal, Rayleigh,
                             Uniform, manikde)
-from .graph import (ContinuousEuclid, ContinuousScalar, FactorGraph,
-                    initfg)
-from .graphinit import init_all, init_variable, reset_initial_values
-from .models import (EuclidDistance, FactorModel, LinearRelative, Mixture,
-                     MsgPrior, Prior, register_factor_model)
+from .graph import (Circular, ContinuousEuclid, ContinuousScalar, Factor,
+                    FactorGraph, Position, Variable, VariableType, initfg)
+from .graphinit import doautoinit, init_all, init_variable, \
+    reset_initial_values
+from .manifolds import SE2, SE3, SO2, SO3, Circle, Euclidean
+from .models import (CircularCircular, EuclidDistance, FactorModel,
+                     GenericMarginal, LinearRelative, ManifoldFactor,
+                     ManifoldPrior, MetaPrior, Mixture, MsgPrior,
+                     PartialPrior, Prior, PriorCircular, PriorModel,
+                     register_factor_model)
+from .ops.convolve import approx_conv_belief, eval_factor, sample_factor
+from .ops.deconv import approx_deconv, approx_deconv_belief, mmd
+from .ops.gradients import FactorGradientsCached, factor_jacobian
+from .ops.graphops import (approx_conv_path, find_shortest_path_dijkstra,
+                           is_path_factors_homogeneous, local_product,
+                           propagate_belief)
+from .ops.product import manifold_product
 from .parallel.scheduler import CliqueTrace
 from .tree import BayesTree, CliqStatus, build_tree, build_tree_reset
+from .utils import select_factor_type
 
 __version__ = "0.1.0"
 
@@ -33,7 +48,7 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "fifo_freeze", "set_ppe", "Belief", "make_belief",
            "generate_kaess", "generate_line_step", "generate_test_symbolic",
            "generate_caesar_ring1d", "generate_euclid_distance",
-           "fourdoor_sequence", "SolverParams", "resolve_device",
+           "generate_hexagonal", "fourdoor_sequence", "SolverParams", "resolve_device",
            "graph_from_arrays", "graph_to_arrays", "Normal", "MvNormal",
            "Uniform", "Rayleigh", "Categorical", "AliasingScalarSampler",
            "ManifoldKernelDensity", "manikde", "ContinuousScalar",
@@ -41,4 +56,14 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "init_variable", "reset_initial_values", "Prior",
            "LinearRelative", "EuclidDistance", "Mixture", "MsgPrior",
            "FactorModel", "register_factor_model", "CliqueTrace",
-           "BayesTree", "CliqStatus", "build_tree", "build_tree_reset"]
+           "BayesTree", "CliqStatus", "build_tree", "build_tree_reset",
+           "manifolds", "SE2", "SE3", "SO2", "SO3", "Circle", "Euclidean",
+           "Circular", "Position", "Variable", "Factor", "VariableType",
+           "doautoinit", "PriorModel", "PriorCircular", "CircularCircular",
+           "PartialPrior", "ManifoldFactor", "ManifoldPrior", "MetaPrior",
+           "GenericMarginal", "approx_conv_belief", "eval_factor",
+           "sample_factor", "approx_deconv", "approx_deconv_belief", "mmd",
+           "FactorGradientsCached", "factor_jacobian", "approx_conv_path",
+           "find_shortest_path_dijkstra", "is_path_factors_homogeneous",
+           "local_product", "propagate_belief", "manifold_product",
+           "select_factor_type"]

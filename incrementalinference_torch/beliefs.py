@@ -151,6 +151,12 @@ def ppe(manifold: Manifold, belief: Belief):
     return {"mean": mu, "max": pmax, "suggested": pmax}
 
 
+def is_partial(belief: Belief) -> bool:
+    """Whether the belief constrains only a subset of tangent dims: some
+    infoPerCoord entries are zero (reference isPartial on beliefs)."""
+    return bool((belief.ipc <= 0).any())
+
+
 class LazyPPE(dict):
     """calcPPE result computed on first access (the JAX package's LazyPPE):
     solves that never read an estimate never pay for its N×N KDE."""

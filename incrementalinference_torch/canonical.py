@@ -2,23 +2,31 @@
 
 Counterpart of ``incrementalinference/jl_tpu/canonical.py`` (reference
 CanonicalGraphExamples.jl: generateGraph_Kaess, _TestSymbolic,
-_CaesarRing1D, _LineStep, _EuclidDistance) and the fourdoor sequence
-(reference test/fourdoortest.jl).  The SE(2) hexagon comes with the
-manifolds.
+_CaesarRing1D, _LineStep, _EuclidDistance), the SE(2) hexagon of the
+reference benchmark suite and the fourdoor sequence (reference
+test/fourdoortest.jl).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Tuple
+
+import torch
 
 from .config import SolverParams
 from .distributions import MvNormal, Normal
-from .graph import ContinuousEuclid, ContinuousScalar, FactorGraph, initfg
-from .models import EuclidDistance, LinearRelative, Mixture, Prior
+from .graph import (ContinuousEuclid, ContinuousScalar, FactorGraph,
+                    VariableType, initfg)
+from .manifolds import SE2
+from .models import (EuclidDistance, FactorModel, LinearRelative,
+                     ManifoldFactor, ManifoldPrior, Mixture, Prior,
+                     register_factor_model)
 
 __all__ = ["generate_kaess", "generate_test_symbolic",
            "generate_caesar_ring1d", "generate_line_step",
-           "generate_euclid_distance", "fourdoor_sequence"]
+           "generate_euclid_distance", "generate_hexagonal",
+           "fourdoor_sequence"]
 
 
 def generate_kaess(graphinit: bool = False,
@@ -136,6 +144,58 @@ def generate_euclid_distance(points=((100.0, 0.0), (0.0, 100.0)),
     for i in range(len(points)):
         fg.add_factor([f"x{i + 1}", "l1"],
                       EuclidDistance(Normal(dist, sigma_dist)))
+    return fg
+
+
+class _Pose2Point2Bearingless(FactorModel):
+    """SE(2) pose → R² landmark offset factor of the hexagonal fixture: the
+    landmark sits at body-frame offset z from the pose."""
+
+    zdim = 2
+
+    def __init__(self, Z: Optional[MvNormal] = None):
+        self.Z = Z or MvNormal([10.0, 0.0], [0.3, 0.3])
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def residual(self, meas, pose, lmk):
+        c, s = torch.cos(pose[..., 2:]), torch.sin(pose[..., 2:])
+        dx = lmk[..., 0:1] - pose[..., 0:1]
+        dy = lmk[..., 1:2] - pose[..., 1:2]
+        return meas - torch.cat([c * dx + s * dy, -s * dx + c * dy], dim=-1)
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
+register_factor_model(_Pose2Point2Bearingless, ("Z",))
+
+
+def generate_hexagonal(graphinit: bool = True, landmark: bool = True,
+                       params: Optional[SolverParams] = None,
+                       device=None) -> FactorGraph:
+    """SE(2) hexagonal ring, optionally with one landmark sighted from the
+    first and the last pose (the loop closure): the RoME-style graph of the
+    reference benchmark suite."""
+    fg = initfg(params, device=device)
+    se2 = SE2()
+    pose2 = VariableType("Pose2", se2)
+    fg.add_variable("x0", pose2)
+    fg.add_factor(["x0"], ManifoldPrior(
+        se2, [0.0] * 3, MvNormal([0.0] * 3, [0.1, 0.1, 0.05])),
+        graphinit=graphinit)
+    # drive 6 sides of a hexagon: forward 10, turn 60 deg
+    step = MvNormal([10.0, 0.0, math.pi / 3], [0.5, 0.5, 0.05])
+    for i in range(6):
+        fg.add_variable(f"x{i + 1}", pose2)
+        fg.add_factor([f"x{i}", f"x{i + 1}"], ManifoldFactor(se2, step),
+                      graphinit=graphinit)
+    if landmark:
+        fg.add_variable("l1", ContinuousEuclid(2))
+        for x in ("x0", "x6"):
+            fg.add_factor([x, "l1"], _Pose2Point2Bearingless(),
+                          graphinit=graphinit)
     return fg
 
 

@@ -28,8 +28,9 @@ class SolverParams:
     # Incremental tree recycling between solves: with an ``old_tree``,
     # cliques whose signature and subtree are unchanged skip their up-solve.
     incremental: bool = True
-    # Joint/likelihood up-messages (reference useMsgLikelihoods; not ported
-    # yet — the scheduler refuses True).
+    # Joint/likelihood up-messages (reference useMsgLikelihoods): solved up
+    # messages also carry relative likelihoods between separator pairs
+    # (parallel/messages.py generate_msg_joint).
     use_msg_likelihoods: bool = False
     # Entropy inflation factor for convolution proposals (reference 5.0).
     inflation: float = 5.0

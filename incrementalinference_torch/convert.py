@@ -10,7 +10,9 @@ dict, so both start from identical particles.
 The dict::
 
     {"params": {SolverParams field: value, ...},          # optional
-     "variables": [{"label", "type": "ContinuousScalar" | "ContinuousEuclid<n>",
+     "variables": [{"label", "type": "ContinuousScalar" | "ContinuousEuclid<n>"
+                            | "Position<n>" | "Circular" | any other name,
+                    "manifold": manifold dict (needed for any other name),
                     "N", "solvable", "tags",
                     "points": (N, d) array or None (uninitialized),
                     "bw": (dof,) array or None (LOO-selected),
@@ -25,7 +27,13 @@ fields of ``_DIST_FIELDS`` (``{"type": "Normal", "mu", "sigma"}``,
 ``{"type": "ManifoldKernelDensity", "dof", "points", "bw"}`` on R^dof.  A
 Mixture factor has, in place of "Z", ``"mechanics"`` (the name of the
 factor type whose residual it uses), ``"components"`` (distribution dicts)
-and ``"diversity"`` (weights).
+and ``"diversity"`` (weights), and ``"mechanics_fields"`` where the
+mechanics take more than a distribution (a ManifoldPrior's manifold and
+point).  The other parameter fields a factor type
+registers travel under their names: ``"manifold"`` (a manifold dict),
+``"p0"`` (ManifoldPrior's point) and ``"partial"`` (PartialPrior's dims).
+A manifold dict is ``{"type": "SE2"}``, ``{"type": "Euclidean", "n": 2}`` or
+``{"type": "Product", "components": [manifold dicts]}``.
 """
 
 from __future__ import annotations
@@ -39,20 +47,57 @@ import torch
 
 from .config import SolverParams
 from . import distributions as _d
-from .graph import ContinuousEuclid, ContinuousScalar, FactorGraph
+from . import manifolds as _m
+from .graph import (Circular, ContinuousEuclid, ContinuousScalar,
+                    FactorGraph, Position, VariableType)
 from .manifolds import Euclidean
 from .models.factors import MODEL_REGISTRY, Mixture
 
-__all__ = ["graph_from_arrays", "graph_to_arrays"]
+__all__ = ["graph_from_arrays", "graph_to_arrays", "manifold_from",
+           "manifold_to"]
+
+#: manifolds without parameters, by class name
+_PLAIN_MANIFOLDS = ("Circle", "SO2", "SE2", "SO3", "SE3", "Sphere2")
 
 
-def _vartype(name: str):
+def manifold_to(m) -> dict:
+    """A manifold as a dict: its class name and what its constructor takes."""
+    name = type(m).__name__
+    if name == "Euclidean":
+        return {"type": name, "n": m.n}
+    if name == "Product":
+        return {"type": name,
+                "components": [manifold_to(c) for c in m.components]}
+    if name in _PLAIN_MANIFOLDS:
+        return {"type": name}
+    raise ValueError(f"unsupported manifold {name}")
+
+
+def manifold_from(d: dict):
+    """The inverse of :func:`manifold_to`."""
+    name = d["type"]
+    if name == "Euclidean":
+        return Euclidean(int(d["n"]))
+    if name == "Product":
+        return _m.Product(*(manifold_from(c) for c in d["components"]))
+    if name in _PLAIN_MANIFOLDS:
+        return getattr(_m, name)()
+    raise ValueError(f"unsupported manifold {name!r}")
+
+
+def _vartype(name: str, manifold: dict | None = None):
     if name == "ContinuousScalar":
         return ContinuousScalar
-    m = re.fullmatch(r"ContinuousEuclid(\d+)", name)
+    if name == "Circular":
+        return Circular
+    m = re.fullmatch(r"(ContinuousEuclid|Position)(\d+)", name)
     if m:
-        return ContinuousEuclid(int(m.group(1)))
-    raise ValueError(f"unsupported variable type {name!r}")
+        make = ContinuousEuclid if m.group(1) == "ContinuousEuclid" \
+            else Position
+        return make(int(m.group(2)))
+    if manifold is None:
+        raise ValueError(f"variable type {name!r} needs its manifold")
+    return VariableType(name, manifold_from(manifold))
 
 
 #: distribution type name -> constructor fields, in order
@@ -89,18 +134,45 @@ def _model_from(f: dict):
         raise ValueError(f"unsupported factor type {f['type']!r}")
     cls, _ = MODEL_REGISTRY[f["type"]]
     if cls is Mixture:
-        return Mixture(MODEL_REGISTRY[f["mechanics"]][0],
-                       [_dist_from(c) for c in f["components"]],
-                       f["diversity"])
-    return cls(_dist_from(f["Z"])) if "Z" in f else cls()
+        components = [_dist_from(c) for c in f["components"]]
+        mechanics = MODEL_REGISTRY[f["mechanics"]][0]
+        extra = f.get("mechanics_fields")
+        if extra:           # mechanics with more than a distribution
+            mechanics = mechanics(Z=components[0], **{
+                k: _FIELD_FROM[k](v) for k, v in extra.items()})
+        return Mixture(mechanics, components, f["diversity"])
+    return cls(**{k: _FIELD_FROM[k](f[k]) for k in _carried(f["type"])})
+
+
+#: the parameter fields convert carries, each with its two directions; a
+#: factor type is carried when all its registered fields are among these
+_FIELD_FROM = {"Z": _dist_from, "manifold": manifold_from,
+               "p0": lambda a: np.asarray(a, np.float32),
+               "partial": lambda t: tuple(int(i) for i in t)}
+_FIELD_TO = {"Z": _dist_to, "manifold": manifold_to,
+             "p0": lambda a: np.asarray(a, np.float32),
+             "partial": list}
+
+
+def _carried(type_name: str):
+    fields = MODEL_REGISTRY[type_name][1]
+    if any(k not in _FIELD_FROM for k in fields):
+        raise ValueError(f"factor type {type_name!r} is not carried as "
+                         f"arrays (fields {fields})")
+    return fields
 
 
 def _model_to(model) -> dict:
     if isinstance(model, Mixture):
-        return {"mechanics": type(model.mechanics).__name__,
+        mech = type(model.mechanics).__name__
+        return {"mechanics": mech,
+                "mechanics_fields": {
+                    k: _FIELD_TO[k](getattr(model.mechanics, k))
+                    for k in _carried(mech) if k != "Z"},
                 "components": [_dist_to(c) for c in model.components],
                 "diversity": np.asarray(model.diversity)}
-    return {"Z": _dist_to(model.Z)} if hasattr(model, "Z") else {}
+    return {k: _FIELD_TO[k](getattr(model, k))
+            for k in _carried(type(model).__name__)}
 
 
 def _tensor(a, device):
@@ -114,7 +186,8 @@ def graph_from_arrays(spec: dict, device=None) -> FactorGraph:
     params = SolverParams(**spec.get("params", {}))
     fg = FactorGraph(params, device=device)
     for v in spec["variables"]:
-        fg.add_variable(v["label"], _vartype(v["type"]), N=v.get("N"),
+        fg.add_variable(v["label"], _vartype(v["type"], v.get("manifold")),
+                        N=v.get("N"),
                         tags=v.get("tags", ()),
                         solvable=v.get("solvable", 1))
         if v.get("points") is not None:
@@ -140,7 +213,8 @@ def graph_to_arrays(fg: FactorGraph, solve_key: str = "default") -> dict:
     for v in fg.variables.values():
         b = v.beliefs.get(solve_key)
         variables.append({
-            "label": v.label, "type": v.vartype.name, "N": v.N,
+            "label": v.label, "type": v.vartype.name,
+            "manifold": manifold_to(v.manifold), "N": v.N,
             "solvable": v.solvable, "tags": sorted(v.tags),
             "points": None if b is None else b.points.cpu().numpy(),
             "bw": None if b is None else b.bw.cpu().numpy(),

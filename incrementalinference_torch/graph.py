@@ -17,10 +17,10 @@ import torch
 from . import keys as _keys
 from .beliefs import Belief, make_belief
 from .config import SolverParams, resolve_device
-from .manifolds import Euclidean, Manifold
+from .manifolds import Circle, Euclidean, Manifold
 
 __all__ = ["VariableType", "Variable", "Factor", "FactorGraph", "initfg",
-           "ContinuousScalar", "ContinuousEuclid"]
+           "ContinuousScalar", "ContinuousEuclid", "Position", "Circular"]
 
 
 class VariableType:
@@ -46,7 +46,13 @@ def ContinuousEuclid(n: int) -> VariableType:
     return VariableType(f"ContinuousEuclid{n}", Euclidean(n))
 
 
+def Position(n: int) -> VariableType:
+    """Translation-group position variable type (reference Position{N})."""
+    return VariableType(f"Position{n}", Euclidean(n))
+
+
 ContinuousScalar = ContinuousEuclid(1)
+Circular = VariableType("Circular", Circle())
 
 
 @dataclass
@@ -99,6 +105,12 @@ class Factor:
     @property
     def is_multihypo(self) -> bool:
         return self.multihypo is not None
+
+    @property
+    def is_partial(self) -> bool:
+        """Reference isPartial: the factor constrains only a subset of the
+        target's tangent dims."""
+        return getattr(self.model, "partial", None) is not None
 
 
 class FactorGraph:

@@ -1,9 +1,13 @@
 """Factor models."""
 
-from .factors import (MODEL_REGISTRY, EuclidDistance, FactorModel,
-                      GenericMarginal, LinearRelative, MetaPrior, Mixture,
-                      MsgPrior, Prior, PriorModel, register_factor_model)
+from .factors import (MODEL_REGISTRY, CircularCircular, EuclidDistance,
+                      FactorModel, GenericMarginal, LinearRelative,
+                      ManifoldFactor, ManifoldPrior, MetaPrior, Mixture,
+                      MsgPrior, MsgRelativeLikelihood, PartialPrior, Prior,
+                      PriorCircular, PriorModel, register_factor_model)
 
 __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
-           "EuclidDistance", "Mixture", "MsgPrior", "MetaPrior",
-           "GenericMarginal", "MODEL_REGISTRY", "register_factor_model"]
+           "EuclidDistance", "PriorCircular", "CircularCircular", "Mixture",
+           "PartialPrior", "MsgPrior", "MetaPrior", "GenericMarginal",
+           "ManifoldFactor", "ManifoldPrior", "MsgRelativeLikelihood",
+           "MODEL_REGISTRY", "register_factor_model"]

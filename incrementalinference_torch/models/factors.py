@@ -1,9 +1,10 @@
-"""Factor models of the nonparametric main path.
+"""Factor models of the nonparametric solve.
 
-Counterpart of ``incrementalinference/jl_tpu/models/factors.py`` for Prior,
-LinearRelative, EuclidDistance, Mixture, MsgPrior, MetaPrior and
-GenericMarginal (the circular, partial and manifold models are not ported
-yet).  A model exposes:
+Counterpart of ``incrementalinference/jl_tpu/models/factors.py``: Prior,
+LinearRelative, EuclidDistance, the circular pair, Mixture, PartialPrior,
+MsgPrior, MetaPrior, GenericMarginal, the on-manifold ManifoldFactor and
+ManifoldPrior, and MsgRelativeLikelihood (GaussianJoint comes with the
+parametric stack).  A model exposes:
 
 - ``sample(gen, n)``: n measurement rows ``(n, zdim)`` drawn with ``gen``;
 - ``residual(meas, *points)``: the residual, written with broadcasting
@@ -22,11 +23,13 @@ import torch
 from .. import keys as _keys
 from ..beliefs import Belief, kde_sample, mean_cov as belief_mean_cov
 from ..distributions import Distribution
-from ..manifolds import Manifold
+from ..manifolds import Euclidean, Manifold, wrap_angle
 
 __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
-           "EuclidDistance", "Mixture", "MsgPrior", "MetaPrior", "GenericMarginal", "MODEL_REGISTRY",
-           "register_factor_model"]
+           "EuclidDistance", "PriorCircular", "CircularCircular", "Mixture",
+           "PartialPrior", "MsgPrior", "MetaPrior", "GenericMarginal",
+           "ManifoldFactor", "ManifoldPrior", "MsgRelativeLikelihood",
+           "MODEL_REGISTRY", "register_factor_model"]
 
 
 class FactorModel:
@@ -124,6 +127,47 @@ class EuclidDistance(FactorModel):
         return self.Z.mean_cov()
 
 
+class PriorCircular(PriorModel):
+    """Prior on an angle (reference src/Factors/Circular.jl)."""
+
+    def __init__(self, Z: Distribution):
+        self.Z = Z
+
+    zdim = 1
+
+    def sample(self, gen, n):
+        return wrap_angle(self.Z.sample(gen, n))
+
+    def sample_points(self, gen, n, manifold):
+        return wrap_angle(self.Z.sample(gen, n))
+
+    def residual(self, meas, x):
+        return wrap_angle(meas - x)
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
+class CircularCircular(FactorModel):
+    """Angle difference x2 ⊖ x1 = z on the circle (reference Circular.jl)."""
+
+    linear_residual = True
+
+    def __init__(self, Z: Distribution):
+        self.Z = Z
+
+    zdim = 1
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def residual(self, meas, x1, x2):
+        return wrap_angle(meas - wrap_angle(x2 - x1))
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
 class Mixture(FactorModel):
     """Mixture over any prior or relative (reference src/Factors/Mixture.jl):
     a categorical label per sample chooses the component that generates
@@ -179,7 +223,10 @@ class Mixture(FactorModel):
         return self.select(draws, labels)
 
     def sample_points(self, gen, n, manifold):
-        return self.sample(gen, n)
+        meas = self.sample(gen, n)
+        if hasattr(self.mechanics, "meas_to_points"):
+            return self.mechanics.meas_to_points(meas, manifold)
+        return meas
 
     def residual(self, meas, *points):
         return self.mechanics.residual(meas, *points)
@@ -198,6 +245,32 @@ class Mixture(FactorModel):
         cov = np.sum(w[:, None, None]
                      * (covs + d[:, :, None] * d[:, None, :]), axis=0)
         return m, cov
+
+
+class PartialPrior(PriorModel):
+    """Prior constraining a subset of tangent dims (reference
+    src/Factors/PartialPrior.jl)."""
+
+    def __init__(self, Z: Distribution, partial: Sequence[int]):
+        self.Z = Z
+        self.partial = tuple(int(i) for i in partial)
+
+    @property
+    def zdim(self):
+        return self.Z.dim
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def sample_points(self, gen, n, manifold):
+        # the caller overlays the sampled sub-dims onto existing points
+        return self.Z.sample(gen, n)
+
+    def residual(self, meas, x):
+        return meas - x[..., list(self.partial)]
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
 
 
 class MsgPrior(PriorModel):
@@ -257,6 +330,101 @@ class GenericMarginal(FactorModel):
         return torch.zeros((0,), device=meas.device)
 
 
+class ManifoldFactor(FactorModel):
+    """Relative factor on a group manifold: the measurement is a tangent
+    vector, residual = log(p1⁻¹∘p2) - z (reference GenericFunctions.jl)."""
+
+    # log-residuals are near-linear in the solve tangent: Newton converges
+    # in a handful of steps (make_conv_spec gives them 8 iterations)
+    quasi_linear_residual = True
+
+    def __init__(self, manifold: Manifold, Z: Distribution):
+        self.manifold = manifold
+        self.Z = Z
+
+    @property
+    def zdim(self):
+        return self.manifold.dof
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def residual(self, meas, p1, p2):
+        return self.manifold.log(p1, p2) - meas
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
+class ManifoldPrior(PriorModel):
+    """Prior at point p0 with tangent noise Z (reference
+    GenericFunctions.jl).  ``p0`` stays host-side numpy, like a
+    distribution's parameters; a tensor copy is made once per device."""
+
+    quasi_linear_residual = True
+
+    def __init__(self, manifold: Manifold, p0, Z: Distribution):
+        self.manifold = manifold
+        if isinstance(p0, torch.Tensor):
+            p0 = p0.detach().cpu().numpy()
+        self.p0 = np.asarray(p0, np.float32)
+        self.Z = Z
+        self._on: dict = {}         # device -> p0 tensor
+
+    @property
+    def zdim(self):
+        return self.manifold.dof
+
+    def _p0_on(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.p0, device=device)
+        return self._on[key]
+
+    def sample(self, gen, n):
+        return self.Z.sample(gen, n)
+
+    def meas_to_points(self, meas, manifold):
+        p0 = self._p0_on(meas.device)
+        return manifold.exp(p0.expand((meas.shape[0],) + p0.shape), meas)
+
+    def sample_points(self, gen, n, manifold):
+        return self.meas_to_points(self.Z.sample(gen, n), manifold)
+
+    def residual(self, meas, x):
+        target = self.manifold.exp(self._p0_on(meas.device), meas)
+        return self.manifold.log(x, target)
+
+    def mean_cov(self):
+        return self.Z.mean_cov()
+
+
+class MsgRelativeLikelihood(FactorModel):
+    """Relative likelihood carried inside a joint up-message: the measured
+    quantity is the tangent difference log(x1⁻¹∘x2), with a particle belief
+    over it obtained by deconvolving the solved child clique (reference
+    addLikelihoodsDifferentialCHILD!, the ``useMsgLikelihoods`` path)."""
+
+    def __init__(self, belief: Belief, manifold: Manifold):
+        self.belief = belief        # Belief over tangent differences
+        self.manifold = manifold
+
+    @property
+    def zdim(self):
+        return self.manifold.dof
+
+    def sample(self, gen, n):
+        # differences live in a Euclidean chart of the tangent space
+        return kde_sample(Euclidean(self.manifold.dof), self.belief, gen, n)
+
+    def residual(self, meas, p1, p2):
+        return self.manifold.log(p1, p2) - meas
+
+    def mean_cov(self):
+        return belief_mean_cov(Euclidean(self.manifold.dof),
+                               self.belief.points)
+
+
 #: factor type name -> (class, parameter fields): the serialization and
 #: convert.py look-up, as the JAX package's MODEL_REGISTRY
 MODEL_REGISTRY: dict = {}
@@ -271,7 +439,13 @@ def register_factor_model(cls, children: tuple = ("Z",)):
 register_factor_model(Prior, ("Z",))
 register_factor_model(LinearRelative, ("Z",))
 register_factor_model(EuclidDistance, ("Z",))
+register_factor_model(PriorCircular, ("Z",))
+register_factor_model(CircularCircular, ("Z",))
 register_factor_model(Mixture, ("mechanics", "components", "diversity"))
+register_factor_model(PartialPrior, ("Z", "partial"))
 register_factor_model(MsgPrior, ("belief", "ipc"))
 register_factor_model(MetaPrior, ())
 register_factor_model(GenericMarginal, ())
+register_factor_model(ManifoldFactor, ("manifold", "Z"))
+register_factor_model(ManifoldPrior, ("manifold", "p0", "Z"))
+register_factor_model(MsgRelativeLikelihood, ("belief", "manifold"))

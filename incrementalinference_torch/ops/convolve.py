@@ -18,13 +18,15 @@ import torch
 from torch.func import jacfwd, vmap
 
 from .. import keys as _keys
-from ..beliefs import spread_estimate
+from ..beliefs import Belief, loo_bandwidth, make_belief, spread_estimate
 from ..manifolds import Manifold
 from .hypo import build_masks, draw_hypotheses, parse_multihypo
+from .product import Proposal
 
 __all__ = ["batched_gauss_newton", "add_entropy", "ConvSpec",
            "make_conv_spec", "null_surplus_map", "static_dim_mask",
-           "eval_factor_core", "eval_factor"]
+           "eval_factor_core", "eval_factor", "sample_factor",
+           "approx_conv_belief", "proposal_from_factor"]
 
 
 def _free_mask(dof: int, partial_dims, device) -> torch.Tensor:
@@ -105,10 +107,13 @@ def add_entropy(manifold: Manifold, points: torch.Tensor, key: int,
     return manifold.exp(points, noise)
 
 
-def _overlay_partial(base: torch.Tensor, sampled: torch.Tensor,
+def _overlay_partial(manifold: Manifold, base: torch.Tensor,
+                     sampled: torch.Tensor,
                      partial_dims: Tuple[int, ...]) -> torch.Tensor:
-    """Overlay sampled coords onto ``partial_dims`` of existing points
-    (coordinate manifolds, as the reference's setPointPartial!)."""
+    """Overlay sampled coords onto ``partial_dims`` of existing points.
+    Point coordinates are written by tangent index, so this is valid on
+    coordinate manifolds only (Euclidean, Circle: ``point_dim == dof``), as
+    in the JAX package and the reference's setPointPartial!."""
     out = base.clone()
     out[:, list(partial_dims)] = sampled[:, :len(partial_dims)]
     return out
@@ -208,7 +213,7 @@ def eval_factor_core(manifold: Manifold, model, key: int,
         pts = model.sample_points(_keys.generator(k_meas, dev), maxlen,
                                   manifold)
         if partial_dims is not None:
-            pts = _overlay_partial(x_cur, pts, partial_dims)
+            pts = _overlay_partial(manifold, x_cur, pts, partial_dims)
         if spec.nullhypo > 0.0:
             mh = draw_hypotheses(k_hypo, maxlen, nvars, None, spec.nullhypo,
                                  dev)
@@ -296,3 +301,36 @@ def eval_factor(fg, factor, solvefor: str, key: int | None = None,
     dim_mask = torch.tensor(static_dim_mask(manifold, spec.partial_dims),
                             device=pts.device)
     return pts, dim_mask
+
+
+def sample_factor(fg, factor, n: int | None = None,
+                  key: int | None = None) -> torch.Tensor:
+    """``n`` fresh measurement rows ``(n, zdim)`` from a factor's
+    measurement model (reference sampleFactor)."""
+    if isinstance(factor, str):
+        factor = fg.factor(factor)
+    key = key if key is not None else fg.next_key()
+    return factor.model.sample(_keys.generator(key, fg.device),
+                               int(n or fg.params.N))
+
+
+def approx_conv_belief(fg, factor_label: str, target: str,
+                       key: int | None = None, solve_key: str = "default",
+                       n: int | None = None) -> Belief:
+    """Factor → target belief (reference approxConvBelief); a partial
+    factor's belief has zero infoPerCoord on the dims it leaves alone."""
+    pts, dim_mask = eval_factor(fg, factor_label, target, key=key,
+                                solve_key=solve_key, n=n)
+    return make_belief(fg.var(target).manifold, pts,
+                       ipc=dim_mask.to(pts.dtype))
+
+
+def proposal_from_factor(fg, factor, target: str, key: int | None = None,
+                         solve_key: str = "default",
+                         n: int | None = None) -> Proposal:
+    """Proposal for the belief-product stage (reference
+    calcProposalBelief)."""
+    pts, dim_mask = eval_factor(fg, factor, target, key=key,
+                                solve_key=solve_key, n=n)
+    return Proposal(pts, loo_bandwidth(fg.var(target).manifold, pts),
+                    dim_mask)

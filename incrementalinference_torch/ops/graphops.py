@@ -1,21 +1,27 @@
 """Belief products at variables — propagate / local product.
 
 Counterpart of ``incrementalinference/jl_tpu/ops/graphops.py`` (reference
-propagateBelief, localProduct, localProductAndUpdate!).
+propagateBelief, localProduct, localProductAndUpdate!), the factor-path
+queries the joint up-messages use, and chained convolutions along a path.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Iterable, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import keys as _keys
 from ..beliefs import Belief, make_belief
 from ..models.factors import GenericMarginal, MetaPrior
 
 __all__ = ["propagate_belief", "local_product", "local_product_and_update",
-           "prepare_update", "UpdatePlan"]
+           "prepare_update", "UpdatePlan", "find_shortest_path_dijkstra",
+           "is_path_factors_homogeneous", "approx_conv_path",
+           "eval_factor_temporary"]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -153,3 +159,97 @@ def local_product_and_update(fg, target: str, key: int | None = None,
     fg.set_belief(target, belief.points, solve_key=solve_key,
                   bw=belief.bw, ipc=ipc)
     return belief
+
+
+def find_shortest_path_dijkstra(fg, frm: str, to: str, type_factors=(),
+                                initialized: bool = False,
+                                solve_key: str = "default") -> list:
+    """Shortest variable–factor–variable path between two variables,
+    optionally restricted to factors of given model classes and/or to
+    initialized variables (reference findShortestPathDijkstra; used by the
+    joint-message machinery).
+
+    Returns the alternating ``[var, factor, var, …]`` label list, or ``[]``
+    when no path exists under the restriction.  The graph is handed to
+    networkx in the same node and edge order as in the JAX package, so that
+    both pick the same one of several shortest paths."""
+    import networkx as nx
+
+    type_factors = tuple(type_factors)
+    g = nx.Graph()
+    for vl in fg.ls():
+        if initialized and not fg.var(vl).is_initialized(solve_key):
+            continue
+        g.add_node(vl)
+    for fl in fg.lsf():
+        f = fg.factor(fl)
+        if type_factors and not isinstance(f.model, type_factors):
+            continue
+        if any(v not in g for v in f.variables):
+            continue
+        for v in f.variables:
+            g.add_edge(fl, v)
+    try:
+        return list(nx.shortest_path(g, frm, to))
+    except (nx.NetworkXNoPath, nx.NodeNotFound):
+        return []
+
+
+def is_path_factors_homogeneous(fg, frm: str, to: str):
+    """Whether every factor on the shortest ``frm``→``to`` path shares one
+    model type; returns ``(is_homogeneous, [type_names])`` (reference
+    isPathFactorsHomogeneous)."""
+    path = find_shortest_path_dijkstra(fg, frm, to)
+    uniq = sorted({type(fg.factor(lbl).model).__name__
+                   for lbl in path[1::2]})
+    return len(uniq) == 1, uniq
+
+
+def approx_conv_path(fg, start: str, target: str, key: int | None = None,
+                     solve_key: str = "default",
+                     n: int | None = None) -> Belief:
+    """Chained convolution from ``start`` to ``target`` along the shortest
+    factor path (reference approxConvBelief(dfg, from, target)), on a
+    scratch copy of the variables so the graph is untouched."""
+    from .convolve import eval_factor
+
+    path = find_shortest_path_dijkstra(fg, start, target)
+    if not path:
+        raise ValueError(f"no factor path {start} → {target}")
+    key = key if key is not None else fg.next_key()
+    scratch = copy.copy(fg)
+    scratch.variables = {k: copy.copy(v) for k, v in fg.variables.items()}
+    for v in scratch.variables.values():
+        v.beliefs = dict(v.beliefs)
+        v.initialized = dict(v.initialized)
+    pts = scratch.points(start, solve_key)
+    for i in range(1, len(path) - 1, 2):
+        fl, nxt = path[i], path[i + 1]
+        key, sub = _keys.split(key, 2)
+        pts, _ = eval_factor(scratch, fl, nxt, key=sub, solve_key=solve_key,
+                             n=n)
+        scratch.set_belief(nxt, pts, solve_key=solve_key)
+    return make_belief(fg.var(target).manifold, pts)
+
+
+def eval_factor_temporary(factor_model, vartypes, values,
+                          key: int | None = None, n: int = 100,
+                          solvefor: int = -1, device=None) -> torch.Tensor:
+    """Evaluate a factor on a throwaway graph built from variable types and
+    one value each (reference _evalFactorTemporary!)."""
+    from ..graph import FactorGraph
+    from .convolve import eval_factor
+
+    fg = FactorGraph(device=device)
+    labels = []
+    for i, (vt, val) in enumerate(zip(vartypes, values)):
+        lbl = f"x{i + 1}"
+        fg.add_variable(lbl, vt, N=n)
+        if not isinstance(val, torch.Tensor):
+            val = torch.as_tensor(np.asarray(val, np.float32))
+        val = val.to(device=fg.device, dtype=torch.float32)
+        fg.set_belief(lbl, val.expand((n, vt.manifold.point_dim)).clone())
+        labels.append(lbl)
+    f = fg.add_factor(labels, factor_model, graphinit=False)
+    pts, _ = eval_factor(fg, f.label, labels[solvefor], key=key, n=n)
+    return pts

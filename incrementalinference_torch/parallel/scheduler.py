@@ -495,9 +495,6 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
     error message floods the rest of the schedule, and the first error
     re-raises after the sweeps.  Returns the per-clique traces (empty
     unless ``params.record_cliques``)."""
-    if fg.params.use_msg_likelihoods:
-        raise NotImplementedError(
-            "use_msg_likelihoods (joint up messages) is not ported yet")
     traces: Dict[int, CliqueTrace] = {}
     levels = tree.levels()
     up_msgs: Dict[int, LikelihoodMessage] = {}

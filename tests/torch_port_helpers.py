@@ -37,8 +37,9 @@ def rng(seed: int = 0) -> np.random.Generator:
 
 
 def t(a) -> torch.Tensor:
-    """float32 CPU tensor from a numpy array."""
-    return torch.as_tensor(np.asarray(a, np.float32))
+    """float32 CPU tensor holding a copy of an array (a JAX array's numpy
+    view is read-only, which torch warns about)."""
+    return torch.as_tensor(np.array(a, np.float32))
 
 
 def _dist(z) -> dict:
@@ -54,12 +55,26 @@ def _dist(z) -> dict:
             **{f: np.asarray(getattr(z, f)) for f in _DIST_FIELDS[name]}}
 
 
+def _fields(model, skip=()) -> dict:
+    """The parameter fields the port registers for this factor type, read
+    off the JAX-package model (the two use the same attribute names)."""
+    from incrementalinference_torch.convert import manifold_to
+    from incrementalinference_torch.models import MODEL_REGISTRY
+
+    to = {"Z": _dist, "manifold": manifold_to,
+          "p0": lambda a: np.asarray(a, np.float32), "partial": list}
+    return {k: to[k](getattr(model, k))
+            for k in MODEL_REGISTRY[type(model).__name__][1]
+            if k not in skip}
+
+
 def _model(model) -> dict:
     if type(model).__name__ == "Mixture":
         return {"mechanics": type(model.mechanics).__name__,
+                "mechanics_fields": _fields(model.mechanics, skip=("Z",)),
                 "components": [_dist(c) for c in model.components],
                 "diversity": np.asarray(model.diversity)}
-    return {"Z": _dist(model.Z)} if hasattr(model, "Z") else {}
+    return _fields(model)
 
 
 def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
@@ -67,11 +82,14 @@ def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
     JAX-package FactorGraph (its beliefs as numpy arrays)."""
     import dataclasses
 
+    from incrementalinference_torch.convert import manifold_to
+
     variables = []
     for v in fg.variables.values():
         b = v.beliefs.get(solve_key)
         variables.append({
-            "label": v.label, "type": v.vartype.name, "N": v.N,
+            "label": v.label, "type": v.vartype.name,
+            "manifold": manifold_to(v.manifold), "N": v.N,
             "solvable": v.solvable, "tags": sorted(v.tags),
             "points": None if b is None else np.asarray(b.points),
             "bw": None if b is None else np.asarray(b.bw),
