@@ -37,7 +37,7 @@ Phases (any failure exits non-zero before the result line; none is caught):
    range-only graph (EuclidDistance, dof 2, the LM branch of the
    convolution) at the bars of tests/test_solve.py:181-193;
 6. curved manifolds: the SE(2) hexagon (7 poses, a landmark, a loop
-   closure) at N = 100, cold and warm (Karcher means of x1, x3, x6 within
+   closure) at N = 100, one solve (Karcher means of x1, x3, x6 within
    1.5 of the ideal hexagon's poses); the circular chain of
    tests/test_manifold_solves.py:14-33 at its bars; the two-variable graph
    on SE(2) at N = 50,000 and on SE(3) at N = 33,000 (a ManifoldPrior on
@@ -49,9 +49,31 @@ Phases (any failure exits non-zero before the result line; none is caught):
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
    same three on the inputs the SE(2) and SE(3) solves handed the kernel,
    and the kernel beside its bound at four more (n, dof);
-8. profile one more warm solve of the LineStep, the two-variable, and the
-   SE(2) and SE(3) configurations (torch.profiler): device busy share, the
-   ten device operations and the ten host operators with the most time.
+8. the parametric stack (no kernel on its path: each phase asserts that
+   the row-logsumexp launched 0 times): solve_graph_parametric on
+   LineStep(1000) without graphinit (752 scalar variables, the rows of
+   benchmarks/parametric_scale.py), cold and warm on fresh builds, max
+   |x_i - i| < 1e-2 and every covariance finite and positive, with the
+   split of a warm solve; the same with solver="cg" (within 1e-2 of the
+   dense solve); the SE(3) chain of benchmarks/parametric_scale.py, cut
+   from 200 poses to 60 (autoinit's rounds take about 2 s a pose on the
+   card's host, PERF.md), through autoinit_parametric and the solve, and
+   the solve alone on a fresh graph seeded with the autoinit points
+   (translation error < 2.0 against the composed step, covariance blocks
+   finite, symmetric and positive definite); the time of one Jacobian of
+   the chain's relative-factor group by vmap(jacfwd) and by reverse mode
+   (they agree to 1e-3); the wide 32-branch
+   forest of bench.py through solve_tree(algorithm="parametric"), fresh
+   twice and re-solved (the bars of tests/test_parametric.py:139-144, the
+   problems each batched LM call held); the SE(2) hexagon phase 6 solved,
+   parametric (|x6[:2]| < 1.5; phase 6 also holds its nonparametric means
+   within 1.5 of the port's parametric optimum), and the 8 -> 9 chain of
+   tests/test_parametric.py:219-262 re-solved with old_tree (>= 3 recycled
+   cliques, within 1e-3 of a solve from scratch);
+9. profile one more warm solve of the LineStep, the two-variable, and the
+   SE(2) and SE(3) configurations, and of the parametric LineStep(1000) and
+   forest (torch.profiler): device busy share, the ten device operations
+   and the ten host operators with the most time.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
 JSON object of per-kernel numbers, and
@@ -478,37 +500,52 @@ def phase_euclid(it, dev):
 
 
 def phase_hexagonal(it):
-    """The SE(2) hexagon with its landmark loop closure at N = 100, cold
-    and warm.  The JAX package's test holds the Karcher means of x1, x3
-    and x6 within 1.5 (SE(2) dist) of the parametric optimum; here the
-    ideal hexagon, composed from the noiseless step, stands in for it."""
+    """The SE(2) hexagon with its landmark loop closure at N = 100, solved
+    once (cold and warm took 33-54 s each; cut for the script's time,
+    PERF.md).  The Karcher means of x1, x3 and x6 within 1.5 (SE(2)
+    dist) of the ideal hexagon, composed from the noiseless step, and of
+    the port's parametric optimum of the same graph (the JAX package's
+    test and bar).  Returns (wall, the solved graph)."""
     se2 = it.SE2()
     step = torch.tensor(_SE2_STEP, device="cuda")
     ideal, p = {}, se2.identity("cuda")
     for i in range(1, 7):
         p = se2.exp(p, step)
         ideal[f"x{i}"] = p
-    walls = []
-    for _ in range(2):
-        t_build = time.time()
-        fg = it.generate_hexagonal(graphinit=True, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        it.solve_tree(fg)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        dists = {}
-        for v in ("x1", "x3", "x6"):
-            mu = se2.mean(fg.points(v))
-            dists[v] = float(se2.dist(mu, ideal[v]))
-            check(dists[v] < 1.5, f"hexagonal {v}: {dists[v]} from the "
-                                  f"ideal pose (bar 1.5)")
-    print(f"PASS hexagonal N=100 solve_tree on CUDA: cold {walls[0]:.3f} s, "
-          f"warm {walls[1]:.3f} s (graph build with graphinit "
+    t_build = time.time()
+    fg = it.generate_hexagonal(graphinit=True, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    it.solve_tree(fg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    dists = {}
+    for v in ("x1", "x3", "x6"):
+        mu = se2.mean(fg.points(v))
+        dists[v] = float(se2.dist(mu, ideal[v]))
+        check(dists[v] < 1.5, f"hexagonal {v}: {dists[v]} from the ideal "
+                              f"pose (bar 1.5)")
+    fp = it.generate_hexagonal(graphinit=False, device="cuda")
+    torch.cuda.synchronize()
+    t_p = time.time()
+    it.solve_graph_parametric(fp)
+    torch.cuda.synchronize()
+    t_p = time.time() - t_p
+    to_opt = {}
+    for v in ("x1", "x3", "x6"):
+        to_opt[v] = float(se2.dist(se2.mean(fg.points(v)),
+                                   fp.var(v).parametric_point))
+        check(to_opt[v] < 1.5, f"hexagonal {v}: {to_opt[v]} from the "
+                               f"parametric optimum (bar 1.5)")
+    print(f"PASS hexagonal N=100 solve_tree on CUDA: {wall:.3f} s (graph "
+          f"build with graphinit "
           f"{t0 - t_build:.3f} s); SE(2) dist of the Karcher means from the "
-          f"ideal hexagon { {k: round(v, 3) for k, v in dists.items()} }",
+          f"ideal hexagon { {k: round(v, 3) for k, v in dists.items()} }, "
+          f"from the port's parametric optimum "
+          f"{ {k: round(v, 3) for k, v in to_opt.items()} } (its "
+          f"solve_graph_parametric from the identity {t_p:.3f} s)",
           flush=True)
-    return walls
+    return wall, fg
 
 
 def phase_circular(it):
@@ -789,13 +826,14 @@ def _device_busy_us(spans):
     return busy
 
 
-def phase_profile(it, name, make_graph, host=True):
+def phase_profile(it, name, make_graph, host=True, solve=None):
     """One more warm solve under torch.profiler: the share of the window
     in which the device was busy, and where device and host time went.
     The profiler's own hooks slow the host, so the window is longer than
     the warm wall printed above.  ``host=False`` traces the device only:
     a solve of several hundred thousand launches stays near its own wall,
-    and the host operators are not listed."""
+    and the host operators are not listed.  ``solve`` (default
+    ``it.solve_tree``) is the entry point the graph goes through."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -806,7 +844,7 @@ def phase_profile(it, name, make_graph, host=True):
         activities.append(ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         t0 = time.time()
-        it.solve_tree(fg)
+        (solve or it.solve_tree)(fg)
         torch.cuda.synchronize()
         window_us = (time.time() - t0) * 1e6
     device, spans = {}, []
@@ -836,6 +874,354 @@ def phase_profile(it, name, make_graph, host=True):
             print(f"    {a.count:7d} {a.self_cpu_time_total / 1e3:10.3f}  "
                   f"{a.key[:100]}")
     sys.stdout.flush()
+
+
+class _Counting:
+    """Counts the calls of one function of a module while it is entered
+    (here: the parametric solver's Jacobian evaluations, one an LM
+    iteration, and its residual-only evaluations)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.owner, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return fn(*a, **k)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _line_truth(fg, dev):
+    """A LineStep variable's id is its position."""
+    return torch.tensor([float(v[1:] if v[0] == "x" else v[2:])
+                         for v in fg.ls()], device=dev)
+
+
+def _param_points(fg):
+    return torch.stack([fg.var(v).parametric_point for v in fg.ls()])
+
+
+def phase_param_linestep(it, K, dev, n=1000):
+    """LineStep(n) without graphinit through solve_graph_parametric: cold
+    (the first parametric solve of the process) and warm, each on a fresh
+    build; a warm solve split into problem build, LM and covariance; then
+    the CG solve.  Returns the kernel launches of the phase (0)."""
+    from incrementalinference_torch.canonical import generate_line_step
+    from incrementalinference_torch.parametric import solver as ps
+
+    K.reset_counts()
+    # the first calls of the linear algebra the solve uses, where they
+    # stand in the process (earlier phases may have loaded the libraries)
+    t0 = time.time()
+    a = 2.0 * torch.eye(4, device=dev)
+    torch.linalg.cholesky(a)
+    torch.linalg.inv(a)
+    torch.linalg.solve_ex(a, a[:, :1])
+    torch.cuda.synchronize()
+    t_linalg = time.time() - t0
+    walls = []
+    with _Counting(ps._Batch, "res_jac") as jac:
+        for _ in range(2):
+            fg = generate_line_step(n, graphinit=False, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            it.solve_graph_parametric(fg)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    truth = _line_truth(fg, dev)
+    dense = _param_points(fg)[:, 0]
+    worst = float((dense - truth).abs().max())
+    covs = torch.stack([fg.var(v).parametric_cov[0, 0] for v in fg.ls()])
+    check(worst < 1e-2, f"LineStep({n}) parametric: max |x_i - i| {worst}")
+    check(bool(torch.isfinite(covs).all() and (covs > 0).all()),
+          f"LineStep({n}) parametric: a covariance not finite and > 0")
+
+    fg = generate_line_step(n, graphinit=False, device=dev)
+    torch.cuda.synchronize()
+    split = [time.time()]
+    prob = ps.ParametricProblem(fg)
+    torch.cuda.synchronize()
+    split.append(time.time())
+    prob.solve(compute_cov=False)
+    torch.cuda.synchronize()
+    split.append(time.time())
+    bt = ps._Batch([prob])
+    bt.cov(bt.p0s)
+    torch.cuda.synchronize()
+    split.append(time.time())
+
+    fc = generate_line_step(n, graphinit=False, device=dev)
+    torch.cuda.synchronize()
+    with _Counting(ps, "_cg") as steps:
+        t0 = time.time()
+        it.solve_graph_parametric(fc, solver="cg", compute_cov=False)
+        torch.cuda.synchronize()
+        t_cg = time.time() - t0
+    cg = _param_points(fc)[:, 0]
+    to_dense = float((cg - dense).abs().max())
+    check(to_dense < 1e-2, f"LineStep({n}) CG: {to_dense} from the dense "
+                           f"solve (bar 1e-2)")
+    launches = K.counts["launches"]
+    check(launches == 0, f"the parametric LineStep launched the kernel "
+                         f"{launches} times")
+    print(f"PASS parametric LineStep({n}) solve_graph_parametric on CUDA "
+          f"({prob.total_dof} tangent dims, {prob.n_residuals} residuals): "
+          f"cold {walls[0]:.3f} s, warm {walls[1]:.3f} s ({jac.calls} "
+          f"Jacobian evaluations in the two: LM iterations and the "
+          f"covariance); first linear-algebra calls at the start of the "
+          f"phase {t_linalg:.3f} s; a warm solve split: problem build "
+          f"{split[1] - split[0]:.3f} s, LM {split[2] - split[1]:.3f} s, "
+          f"covariance {split[3] - split[2]:.3f} s; "
+          f"max |x_i - i| {worst:.3e}; kernel launches {launches}",
+          flush=True)
+    print(f"PASS parametric LineStep({n}) solver='cg', compute_cov=False: "
+          f"{t_cg:.3f} s ({steps.calls} LM iterations of up to 200 CG "
+          f"iterations each); max |cg - dense| "
+          f"{to_dense:.3e}, max |x_i - i| "
+          f"{float((cg - truth).abs().max()):.3e}", flush=True)
+    return launches
+
+
+_SE3_CHAIN_STEP = [1.0, 0.0, 0.05, 0.0, 0.0, 0.02]
+
+
+def _se3_chain(it, n, dev):
+    """benchmarks/parametric_scale.py's SE(3) chain: a ManifoldPrior at the
+    identity, then n - 1 ManifoldFactor steps, sigma 0.01 everywhere."""
+    import numpy as np
+
+    M = it.SE3()
+    vt = it.VariableType("Pose3", M)
+    fg = it.initfg(it.SolverParams(N=8, graphinit=False), device=dev)
+    fg.add_variable("x0", vt)
+    fg.add_factor(["x0"], it.ManifoldPrior(M, M.identity(), it.MvNormal(
+        np.zeros(6), [0.01] * 6)), graphinit=False)
+    for i in range(1, n):
+        fg.add_variable(f"x{i}", vt)
+        fg.add_factor([f"x{i - 1}", f"x{i}"], it.ManifoldFactor(
+            M, it.MvNormal(_SE3_CHAIN_STEP, [0.01] * 6)), graphinit=False)
+    return fg
+
+
+def phase_param_se3(it, K, dev, n=60):
+    """The SE(3) chain through autoinit_parametric and solve_graph_parametric,
+    then the solve alone on a fresh graph seeded with the autoinit points.
+    Returns the kernel launches of the phase (0)."""
+    from incrementalinference_torch.parametric import solver as ps
+
+    M = it.SE3()
+    K.reset_counts()
+    fg = _se3_chain(it, n, dev)
+    torch.cuda.synchronize()
+    with _Counting(ps, "_solve_batch") as rounds, \
+            _Counting(ps._Batch, "res_jac") as auto_jac:
+        t0 = time.time()
+        it.autoinit_parametric(fg)
+        torch.cuda.synchronize()
+        t_auto = time.time() - t0
+    seeds = {v: fg.var(v).parametric_point.clone() for v in fg.ls()}
+    t0 = time.time()
+    it.solve_graph_parametric(fg)
+    torch.cuda.synchronize()
+    t_solve = time.time() - t0
+    fresh = _se3_chain(it, n, dev)
+    for v, p in seeds.items():
+        fresh.var(v).parametric_point = p
+    torch.cuda.synchronize()
+    with _Counting(ps._Batch, "res_jac") as jac:
+        t0 = time.time()
+        it.solve_graph_parametric(fresh)
+        torch.cuda.synchronize()
+        t_lm = time.time() - t0
+    cur, worst, asym = M.identity(dev), 0.0, 0.0
+    step = torch.tensor(_SE3_CHAIN_STEP, device=dev)
+    for i in range(n):
+        v = f"x{i}"
+        worst = max(worst, float(torch.linalg.norm(
+            fresh.var(v).parametric_point[:3] - cur[:3])))
+        C = fresh.var(v).parametric_cov
+        check(bool(torch.isfinite(C).all()), f"SE(3) chain {v}: covariance "
+                                             f"not finite")
+        asym = max(asym, float((C - C.T).abs().max() / C.abs().max()))
+        check(bool((torch.linalg.eigvalsh(0.5 * (C + C.T)) > 0).all()),
+              f"SE(3) chain {v}: covariance not positive definite")
+        cur = M.exp(cur, step)
+    check(asym < 1e-4, f"SE(3) chain: covariance asymmetry {asym}")
+    check(worst < 2.0, f"SE(3) chain: translation error {worst} (bar 2.0)")
+    launches = K.counts["launches"]
+    check(launches == 0, f"the SE(3) chain launched the kernel {launches} "
+                         f"times")
+    print(f"PASS parametric SE(3) chain of {n} poses on CUDA: "
+          f"autoinit_parametric {t_auto:.3f} s ({rounds.calls} LM solves, "
+          f"{auto_jac.calls} Jacobian evaluations), "
+          f"then solve_graph_parametric {t_solve:.3f} s; the solve alone "
+          f"from the autoinit points {t_lm:.3f} s ({jac.calls} Jacobian "
+          f"evaluations); max translation error against the composed step "
+          f"{worst:.4f} over {float(torch.linalg.norm(cur[:3])):.1f} units "
+          f"end to end; covariance asymmetry {asym:.2e}; kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _param_forest(it, dev, branches=32):
+    """bench.py's wide forest: 32 branches of a Prior and a LinearRelative."""
+    fg = it.initfg(it.SolverParams(batch_cliques=False), device=dev)
+    for b in range(branches):
+        fg.add_variable(f"b{b}x0", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0"], it.Prior(it.Normal(float(b), 0.5)))
+        fg.add_variable(f"b{b}x1", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0", f"b{b}x1"],
+                      it.LinearRelative(it.Normal(1.0, 0.5)))
+    return fg
+
+
+def phase_param_forest(it, K, dev, branches=32):
+    """The forest through solve_tree(algorithm="parametric"): two fresh
+    graphs, then the second one re-solved.  Returns the kernel launches of
+    the phase (0)."""
+    K.reset_counts()
+    walls, batches = [], []
+    for fresh in (True, True, False):
+        if fresh:
+            fg = _param_forest(it, dev, branches)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tree = it.solve_tree(fg, algorithm="parametric")
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        batches.append(list(tree.param_batches))
+        for b in range(branches):
+            e0 = float(fg.var(f"b{b}x0").parametric_point[0])
+            e1 = float(fg.var(f"b{b}x1").parametric_point[0])
+            check(abs(e0 - b) < 1e-3 and abs(e1 - (b + 1)) < 1e-3,
+                  f"forest branch {b}: {e0}, {e1}")
+    launches = K.counts["launches"]
+    check(launches == 0, f"the parametric forest launched the kernel "
+                         f"{launches} times")
+    print(f"PASS parametric forest of {branches} branches "
+          f"solve_tree(algorithm='parametric') on CUDA: fresh graph "
+          f"{walls[0]:.3f} s (first), {walls[1]:.3f} s; same-graph re-solve "
+          f"{walls[2]:.3f} s; {tree.num_cliques()} cliques; problems per "
+          f"batched LM call, in order: {batches[1]}; kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def phase_param_jacobians(it, dev, n=60):
+    """What a Jacobian of the SE(3) chain's relative-factor group (n - 1
+    ManifoldFactor rows) costs: through vmap(jacfwd(..., has_aux=True)), as
+    the solver takes it, and by reverse mode with the residual's rows
+    batched on a leading axis (one backward pass), the candidate of
+    ROADMAP.md's later work.  Median milliseconds of host clock around
+    synchronized calls, and the largest difference of the two."""
+    from torch.func import jacfwd, vmap
+
+    M = it.SE3()
+    F, z = n - 1, M.dof
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    a = M.exp(M.identity(dev).expand(F, 7),
+              0.3 * torch.randn((F, 6), generator=gen, device=dev))
+    b = M.exp(a, torch.randn((F, 6), generator=gen, device=dev))
+    meas = torch.randn((F, 6), generator=gen, device=dev)
+    xl = torch.zeros((F, 12), device=dev)
+
+    def res(x, p1, p2, zz):
+        return M.log(M.exp(p1, x[..., :6]), M.exp(p2, x[..., 6:])) - zz
+
+    def with_aux(x, p1, p2, zz):
+        r = res(x, p1, p2, zz)
+        return r, r
+
+    forward = vmap(jacfwd(with_aux, has_aux=True))
+
+    def reverse():
+        X = xl.expand(z, F, 12).clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = res(X, a, b, meas)                           # (z, F, z)
+            (g,) = torch.autograd.grad(
+                torch.diagonal(out, dim1=0, dim2=2).sum(), X)
+        return g.permute(1, 0, 2)
+
+    times = {}
+    for name, fn in (("vmap(jacfwd)", lambda: forward(xl, a, b, meas)[0]),
+                     ("reverse", reverse)):
+        fn()
+        runs = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            J = fn()
+            torch.cuda.synchronize()
+            runs.append((time.time() - t0) * 1e3)
+        times[name] = (statistics.median(runs), J)
+    diff = float((times["vmap(jacfwd)"][1] - times["reverse"][1]).abs().max())
+    check(diff < 1e-3, f"the two Jacobians differ by {diff}")
+    print(f"SE(3) relative-factor group Jacobian, {F} factors, on CUDA: "
+          f"vmap(jacfwd) {times['vmap(jacfwd)'][0]:.2f} ms, reverse mode "
+          f"{times['reverse'][0]:.2f} ms (median of 10); max difference "
+          f"{diff:.2e}", flush=True)
+
+
+def phase_param_tree(it, K, dev, hexagon):
+    """The parametric tree solve of the hexagon phase 6 solved (seeded from
+    its beliefs), and the chain of tests/test_parametric.py:219-262 grown
+    from 8 to 9 poses and re-solved with old_tree.  Returns the kernel
+    launches of the phase (0)."""
+    K.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    it.solve_tree(hexagon, algorithm="parametric")
+    torch.cuda.synchronize()
+    t_hex = time.time() - t0
+    x6 = hexagon.var("x6").parametric_point
+    r6 = float(torch.linalg.norm(x6[:2]))
+    check(r6 < 1.5, f"parametric hexagon: |x6[:2]| = {r6} (bar 1.5)")
+
+    def chain(n):
+        fg = it.initfg(it.SolverParams(incremental=True, graphinit=False),
+                       device=dev)
+        fg.add_variable("x0", it.ContinuousScalar)
+        fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 0.5)), graphinit=False)
+        for i in range(n):
+            fg.add_variable(f"x{i + 1}", it.ContinuousScalar)
+            fg.add_factor([f"x{i}", f"x{i + 1}"],
+                          it.LinearRelative(it.Normal(1.0, 0.1)),
+                          graphinit=False)
+        return fg
+
+    fg = chain(8)
+    tree = it.solve_tree(fg, algorithm="parametric")
+    fg.add_variable("x9", it.ContinuousScalar)
+    fg.add_factor(["x8", "x9"], it.LinearRelative(it.Normal(1.0, 0.1)),
+                  graphinit=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tree = it.solve_tree(fg, algorithm="parametric", old_tree=tree)
+    torch.cuda.synchronize()
+    t_grow = time.time() - t0
+    recycled = sum(cl.is_recycled for cl in tree.cliques.values())
+    check(recycled >= 3, f"parametric chain: {recycled} recycled cliques")
+    fresh = chain(9)
+    it.solve_tree(fresh, algorithm="parametric")
+    diff = float((_param_points(fg) - _param_points(fresh)).abs().max())
+    check(diff < 1e-3, f"parametric chain: {diff} from a solve from scratch")
+    launches = K.counts["launches"]
+    check(launches == 0, f"the parametric tree solves launched the kernel "
+                         f"{launches} times")
+    print(f"PASS parametric tree solves on CUDA: hexagon {t_hex:.3f} s, "
+          f"|x6[:2]| = {r6:.4f}; chain 8 -> 9 with old_tree {t_grow:.3f} s, "
+          f"{recycled} of {tree.num_cliques()} cliques recycled, max "
+          f"{diff:.2e} from a solve from scratch; kernel launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -875,7 +1261,7 @@ def main() -> int:
           f"the N=50k fourdoor solves never launched the row_logsumexp "
           f"kernel: {fd_launches}")
     phase_euclid(it, "cuda")
-    phase_hexagonal(it)
+    _, hexagon = phase_hexagonal(it)
     phase_circular(it)
     by_path, handed_by_path = {}, {}
     for M, name, step, sigma, N in _manifold_setups():
@@ -885,6 +1271,16 @@ def main() -> int:
         by_path[path] = n_launches
         handed_by_path[path] = (n_launches, handed)
     phase_joint(it)
+    by_path["parametric LineStep(1000), dense and cg"] = \
+        phase_param_linestep(it, K, dev)
+    by_path["parametric SE(3) chain of 60, autoinit and solves"] = \
+        phase_param_se3(it, K, dev)
+    phase_param_jacobians(it, dev)
+    by_path["parametric forest of 32, three tree solves"] = \
+        phase_param_forest(it, K, dev)
+    by_path["parametric hexagon and chain tree solves"] = \
+        phase_param_tree(it, K, dev, hexagon)
+    del hexagon
     entry = phase_timing(K, dev, launches, {
         "two-variable N=50000, one solve": launches,
         "fourdoor N=50000, solves 1-3": fd_launches, **by_path},
@@ -898,6 +1294,13 @@ def main() -> int:
     for M, name, step, sigma, N in _manifold_setups():
         phase_profile(it, f"{name} two-pose N={N}", lambda: _two_pose_graph(
             it, M, name, step, sigma, N)[0], host=False)
+    phase_profile(it, "parametric LineStep(1000) solve_graph_parametric",
+                  lambda: generate_line_step(1000, graphinit=False,
+                                             device="cuda"),
+                  solve=it.solve_graph_parametric)
+    phase_profile(it, "parametric forest of 32 solve_tree",
+                  lambda: _param_forest(it, "cuda"),
+                  solve=lambda fg: it.solve_tree(fg, algorithm="parametric"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

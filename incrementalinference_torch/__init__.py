@@ -1,4 +1,5 @@
-"""incrementalinference_torch — the nonparametric solve in PyTorch.
+"""incrementalinference_torch — the nonparametric and parametric solves in
+PyTorch.
 
 The PyTorch and CUDA port of :mod:`incrementalinference.jl_tpu` (which stays
 the reference).  Graphs live on a device, CUDA unless the caller passes
@@ -26,7 +27,8 @@ from .graphinit import doautoinit, init_all, init_variable, \
     reset_initial_values
 from .manifolds import SE2, SE3, SO2, SO3, Circle, Euclidean
 from .models import (CircularCircular, EuclidDistance, FactorModel,
-                     GenericMarginal, LinearRelative, ManifoldFactor,
+                     GaussianJoint, GenericMarginal, LinearRelative,
+                     ManifoldFactor,
                      ManifoldPrior, MetaPrior, Mixture, MsgPrior,
                      PartialPrior, Prior, PriorCircular, PriorModel,
                      register_factor_model)
@@ -38,6 +40,11 @@ from .ops.graphops import (approx_conv_path, find_shortest_path_dijkstra,
                            propagate_belief)
 from .ops.product import manifold_product
 from .parallel.scheduler import CliqueTrace
+from .parametric import (autoinit_parametric, init_parametric_from,
+                         solve_conditionals_parametric,
+                         solve_graph_parametric, solve_tree_parametric)
+from .tether import (accumulate_factor_means, rebase_factor_variable,
+                     solve_factor_parametric)
 from .tree import BayesTree, CliqStatus, build_tree, build_tree_reset
 from .utils import select_factor_type
 
@@ -66,4 +73,8 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "FactorGradientsCached", "factor_jacobian", "approx_conv_path",
            "find_shortest_path_dijkstra", "is_path_factors_homogeneous",
            "local_product", "propagate_belief", "manifold_product",
-           "select_factor_type"]
+           "select_factor_type", "GaussianJoint", "solve_graph_parametric",
+           "solve_conditionals_parametric", "autoinit_parametric",
+           "init_parametric_from", "solve_tree_parametric",
+           "solve_factor_parametric", "accumulate_factor_means",
+           "rebase_factor_variable"]

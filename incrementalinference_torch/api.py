@@ -18,6 +18,7 @@ from .parallel.messages import (LikelihoodMessage, prep_msg_down,
                                 prep_msg_up)
 from .parallel.scheduler import (down_solve_clique, solve_tree_sweeps,
                                  up_solve_clique)
+from .parametric.cliques import solve_tree_parametric
 from .tree.bayestree import BayesTree, CliqStatus, build_tree_reset
 
 __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
@@ -57,11 +58,20 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                solve_key: str = "default", store_old: bool = False,
                up: Optional[bool] = None, down: Optional[bool] = None,
                order: Optional[Sequence[str]] = None,
+               algorithm: str = "default",
                verbose: bool = False) -> BayesTree:
     """Nonparametric MM-iSAM solve over the Bayes tree (reference
     solveTree!).  Runs on the graph's device.  Returns the tree: pass it
     back as ``old_tree`` after the graph has grown, and the cliques that
-    are unchanged are recycled (``SolverParams.incremental``)."""
+    are unchanged are recycled (``SolverParams.incremental``).
+
+    ``algorithm="parametric"`` runs the clique-wise Gaussian solve instead
+    (reference solveTree!(...; algorithm=:parametric), SolverAPI.jl:423;
+    parametric/cliques.py)."""
+    if algorithm == "parametric":
+        return solve_tree_parametric(fg, old_tree=old_tree, order=order)
+    if algorithm != "default":
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     params = fg.params
     t0 = time.time()
     ensure_solvable(fg)

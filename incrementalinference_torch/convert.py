@@ -16,7 +16,9 @@ The dict::
                     "N", "solvable", "tags",
                     "points": (N, d) array or None (uninitialized),
                     "bw": (dof,) array or None (LOO-selected),
-                    "ipc": (dof,) array or None}, ...],
+                    "ipc": (dof,) array or None,
+                    "parametric_point": (point_dim,) array or None,
+                    "parametric_cov": (dof, dof) array or None}, ...],
      "factors": [{"label", "type": "Prior" | "LinearRelative" | ...,
                   "variables": [labels], "Z": distribution dict,
                   "multihypo", "nullhypo", "solvable", "tags"}, ...]}
@@ -31,7 +33,9 @@ and ``"diversity"`` (weights), and ``"mechanics_fields"`` where the
 mechanics take more than a distribution (a ManifoldPrior's manifold and
 point).  The other parameter fields a factor type
 registers travel under their names: ``"manifold"`` (a manifold dict),
-``"p0"`` (ManifoldPrior's point) and ``"partial"`` (PartialPrior's dims).
+``"p0"`` (ManifoldPrior's point), ``"partial"`` (PartialPrior's dims), and
+GaussianJoint's ``"manifolds"`` (manifold dicts), ``"p0s"`` (arrays) and
+``"cov"``.
 A manifold dict is ``{"type": "SE2"}``, ``{"type": "Euclidean", "n": 2}`` or
 ``{"type": "Product", "components": [manifold dicts]}``.
 """
@@ -148,10 +152,25 @@ def _model_from(f: dict):
 #: factor type is carried when all its registered fields are among these
 _FIELD_FROM = {"Z": _dist_from, "manifold": manifold_from,
                "p0": lambda a: np.asarray(a, np.float32),
-               "partial": lambda t: tuple(int(i) for i in t)}
+               "partial": lambda t: tuple(int(i) for i in t),
+               "manifolds": lambda ms: [manifold_from(m) for m in ms],
+               "p0s": lambda ps: [np.asarray(p, np.float32) for p in ps],
+               "cov": lambda a: np.asarray(a, np.float32)}
 _FIELD_TO = {"Z": _dist_to, "manifold": manifold_to,
              "p0": lambda a: np.asarray(a, np.float32),
-             "partial": list}
+             "partial": list,
+             "manifolds": lambda ms: [manifold_to(m) for m in ms],
+             "p0s": lambda ps: [_host(p) for p in ps],
+             "cov": lambda a: _host(a)}
+
+
+def _host(a):
+    """A tensor or array as a float32 numpy array (None stays None)."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(a, np.float32)
 
 
 def _carried(type_name: str):
@@ -196,6 +215,10 @@ def graph_from_arrays(spec: dict, device=None) -> FactorGraph:
                 v["label"], _tensor(v["points"], fg.device),
                 bw=None if bw is None else _tensor(bw, fg.device),
                 ipc=None if ipc is None else _tensor(ipc, fg.device))
+        var = fg.var(v["label"])
+        for k in ("parametric_point", "parametric_cov"):
+            if v.get(k) is not None:
+                setattr(var, k, _tensor(v[k], fg.device))
     for f in spec["factors"]:
         fg.add_factor(f["variables"], _model_from(f), multihypo=f.get("multihypo"),
                       nullhypo=f.get("nullhypo", 0.0), label=f["label"],
@@ -219,6 +242,8 @@ def graph_to_arrays(fg: FactorGraph, solve_key: str = "default") -> dict:
             "points": None if b is None else b.points.cpu().numpy(),
             "bw": None if b is None else b.bw.cpu().numpy(),
             "ipc": None if b is None else b.ipc.cpu().numpy(),
+            "parametric_point": _host(v.parametric_point),
+            "parametric_cov": _host(v.parametric_cov),
         })
     factors = []
     for f in fg.factors.values():

@@ -67,6 +67,9 @@ class Variable:
     beliefs: Dict[str, Belief] = field(default_factory=dict)
     initialized: Dict[str, bool] = field(default_factory=dict)
     ppe: Dict[str, dict] = field(default_factory=dict)
+    # parametric solve state: the point and its tangent covariance
+    parametric_point: Optional[torch.Tensor] = None
+    parametric_cov: Optional[torch.Tensor] = None
     marginalized: bool = False
     solved_count: Dict[str, int] = field(default_factory=dict)
 
@@ -76,6 +79,9 @@ class Variable:
 
     def get_solved_count(self, solve_key: str = "default") -> int:
         return self.solved_count.get(solve_key, 0)
+
+    def is_solved(self, solve_key: str = "default") -> bool:
+        return self.get_solved_count(solve_key) > 0
 
     def belief(self, solve_key: str = "default") -> Belief:
         return self.beliefs[solve_key]

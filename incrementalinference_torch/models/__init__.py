@@ -1,7 +1,8 @@
 """Factor models."""
 
 from .factors import (MODEL_REGISTRY, CircularCircular, EuclidDistance,
-                      FactorModel, GenericMarginal, LinearRelative,
+                      FactorModel, GaussianJoint, GenericMarginal,
+                      LinearRelative,
                       ManifoldFactor, ManifoldPrior, MetaPrior, Mixture,
                       MsgPrior, MsgRelativeLikelihood, PartialPrior, Prior,
                       PriorCircular, PriorModel, register_factor_model)
@@ -10,4 +11,4 @@ __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
            "EuclidDistance", "PriorCircular", "CircularCircular", "Mixture",
            "PartialPrior", "MsgPrior", "MetaPrior", "GenericMarginal",
            "ManifoldFactor", "ManifoldPrior", "MsgRelativeLikelihood",
-           "MODEL_REGISTRY", "register_factor_model"]
+           "GaussianJoint", "MODEL_REGISTRY", "register_factor_model"]

@@ -3,8 +3,8 @@
 Counterpart of ``incrementalinference/jl_tpu/models/factors.py``: Prior,
 LinearRelative, EuclidDistance, the circular pair, Mixture, PartialPrior,
 MsgPrior, MetaPrior, GenericMarginal, the on-manifold ManifoldFactor and
-ManifoldPrior, and MsgRelativeLikelihood (GaussianJoint comes with the
-parametric stack).  A model exposes:
+ManifoldPrior, MsgRelativeLikelihood, and GaussianJoint (the parametric
+tree message).  A model exposes:
 
 - ``sample(gen, n)``: n measurement rows ``(n, zdim)`` drawn with ``gen``;
 - ``residual(meas, *points)``: the residual, written with broadcasting
@@ -29,7 +29,7 @@ __all__ = ["FactorModel", "PriorModel", "Prior", "LinearRelative",
            "EuclidDistance", "PriorCircular", "CircularCircular", "Mixture",
            "PartialPrior", "MsgPrior", "MetaPrior", "GenericMarginal",
            "ManifoldFactor", "ManifoldPrior", "MsgRelativeLikelihood",
-           "MODEL_REGISTRY", "register_factor_model"]
+           "GaussianJoint", "MODEL_REGISTRY", "register_factor_model"]
 
 
 class FactorModel:
@@ -392,7 +392,16 @@ class ManifoldPrior(PriorModel):
         return self.meas_to_points(self.Z.sample(gen, n), manifold)
 
     def residual(self, meas, x):
-        target = self.manifold.exp(self._p0_on(meas.device), meas)
+        return self.residual_with(self.residual_params(meas.device), meas, x)
+
+    def residual_params(self, device) -> tuple:
+        """The tensors the residual reads from the model, which a
+        parametric factor group stacks across its factors."""
+        return (self._p0_on(device),)
+
+    def residual_with(self, params, meas, x):
+        """The residual at the point ``params[0]`` in place of ``p0``."""
+        target = self.manifold.exp(params[0], meas)
         return self.manifold.log(x, target)
 
     def mean_cov(self):
@@ -425,6 +434,49 @@ class MsgRelativeLikelihood(FactorModel):
                                self.belief.points)
 
 
+class GaussianJoint(FactorModel):
+    """Joint Gaussian prior over several variables: the parametric tree
+    message (reference LikelihoodMessage.cliqueLikelihood::MvNormal carried
+    by the parametric CSM, ParametricCSMFunctions.jl:8-97, and
+    calculateCoBeliefMessage, ParametricUtils.jl:744-796).
+
+    residual = concat_v log(p0_v, x_v) - z, with the joint covariance
+    ``cov`` over the stacked tangent dims and mean zero."""
+
+    def __init__(self, manifolds, p0s, cov):
+        self.manifolds = tuple(manifolds)
+        self.p0s = tuple(torch.as_tensor(p, dtype=torch.float32)
+                         for p in p0s)
+        self.cov = torch.as_tensor(cov, dtype=torch.float32)
+
+    @property
+    def zdim(self):
+        return sum(m.dof for m in self.manifolds)
+
+    def sample(self, gen, n):
+        eye = torch.eye(self.zdim, device=self.cov.device)
+        L = torch.linalg.cholesky(self.cov + 1e-9 * eye).to(gen.device)
+        return torch.randn((n, self.zdim), generator=gen,
+                           device=gen.device) @ L.T
+
+    def residual(self, meas, *points):
+        return self.residual_with(self.residual_params(meas.device), meas,
+                                  *points)
+
+    def residual_params(self, device) -> tuple:
+        """The tensors the residual reads from the model."""
+        return tuple(p.to(device) for p in self.p0s)
+
+    def residual_with(self, params, meas, *points):
+        """The residual at the points ``params`` in place of ``p0s``."""
+        logs = [m.log(p0, x) for m, p0, x in
+                zip(self.manifolds, params, points)]
+        return torch.cat(logs, dim=-1) - meas
+
+    def mean_cov(self):
+        return torch.zeros((self.zdim,), device=self.cov.device), self.cov
+
+
 #: factor type name -> (class, parameter fields): the serialization and
 #: convert.py look-up, as the JAX package's MODEL_REGISTRY
 MODEL_REGISTRY: dict = {}
@@ -449,3 +501,4 @@ register_factor_model(GenericMarginal, ())
 register_factor_model(ManifoldFactor, ("manifold", "Z"))
 register_factor_model(ManifoldPrior, ("manifold", "p0", "Z"))
 register_factor_model(MsgRelativeLikelihood, ("belief", "manifold"))
+register_factor_model(GaussianJoint, ("manifolds", "p0s", "cov"))

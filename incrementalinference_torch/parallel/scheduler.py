@@ -65,7 +65,9 @@ def _copy_variable(v: Variable) -> Variable:
     return Variable(label=v.label, vartype=v.vartype, N=v.N,
                     tags=set(v.tags), solvable=v.solvable,
                     beliefs=dict(v.beliefs), initialized=dict(v.initialized),
-                    ppe=dict(v.ppe), marginalized=v.marginalized)
+                    ppe=dict(v.ppe), parametric_point=v.parametric_point,
+                    parametric_cov=v.parametric_cov,
+                    marginalized=v.marginalized)
 
 
 def build_clique_subgraph(fg: FactorGraph, clique: Clique) -> FactorGraph:

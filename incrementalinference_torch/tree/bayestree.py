@@ -78,6 +78,10 @@ class BayesTree:
         self.down_cache: Dict[Tuple, dict] = {}
         # per-clique traces of the last solve (SolverParams.record_cliques)
         self.traces: Dict[int, object] = {}
+        # parametric solves: Gaussian up messages by clique signature (the
+        # next solve's recycling) and the size of each batched LM call
+        self.param_up_msgs: Dict[Tuple, object] = {}
+        self.param_batches: List[int] = []
         # up/down messages of the last sweep, for introspection
         self.up_msgs: Dict[int, object] = {}
         self.down_msgs: Dict[int, object] = {}

@@ -1,9 +1,11 @@
 """convert.graph_from_arrays / graph_to_arrays round trips."""
 
 import numpy as np
+import torch
 
 from torch_port_helpers import jax_graph_to_arrays
 
+import incrementalinference.jl_tpu as jl
 import incrementalinference_torch as it
 
 
@@ -78,7 +80,7 @@ def _assert_same_parameters(a: dict, b: dict):
             for k in x:
                 same(x[k], y[k], f"{where}.{k}")
         elif isinstance(x, (list, tuple)) and x and \
-                isinstance(x[0], (dict, list, tuple)):
+                isinstance(x[0], (dict, list, tuple, np.ndarray)):
             assert len(x) == len(y), where
             for i, (u, v) in enumerate(zip(x, y)):
                 same(u, v, f"{where}[{i}]")
@@ -127,3 +129,48 @@ def test_jax_curved_graph_carries_across():
     for v in fj.ls():
         assert repr(ft.var(v).manifold) == repr(fj.var(v).manifold)
         assert ft.var(v).vartype.name == fj.var(v).vartype.name
+
+
+def test_round_trip_of_parametric_state_and_gaussian_joint():
+    """parametric_point, parametric_cov and a GaussianJoint (SE(2) and
+    SE(3) points, a 9 x 9 covariance) through the arrays and back, and from
+    the JAX package's own GaussianJoint."""
+    from incrementalinference.jl_tpu import manifolds as jm
+    from incrementalinference.jl_tpu.models.factors import GaussianJoint
+    from incrementalinference_torch import manifolds
+
+    r = np.random.default_rng(5)
+    L = r.standard_normal((9, 9)).astype(np.float32)
+    C = L @ L.T + np.eye(9, dtype=np.float32)
+    p2 = np.array([1.0, 2.0, 0.3], np.float32)
+    p3 = np.array([1.0, 2.0, 3.0, 1.0, 0.0, 0.0, 0.0], np.float32)
+
+    def build(pkg, mani, joint, **kw):
+        fg = pkg.initfg(pkg.SolverParams(graphinit=False), **kw)
+        fg.add_variable("p", pkg.VariableType("Pose2", mani.SE2()))
+        fg.add_variable("q", pkg.VariableType("Pose3", mani.SE3()))
+        fg.add_factor(["p", "q"], joint([mani.SE2(), mani.SE3()], [p2, p3],
+                                        C), label="msg")
+        fg.var("p").parametric_point = p2 + 1.0
+        fg.var("p").parametric_cov = np.eye(3, dtype=np.float32)
+        return fg
+
+    fg = build(it, manifolds, it.GaussianJoint, device="cpu")
+    fg.var("p").parametric_point = torch.as_tensor(p2 + 1.0)
+    spec = it.graph_to_arrays(fg)
+    back = it.graph_from_arrays(spec, device="cpu")
+    _assert_same_parameters(spec, it.graph_to_arrays(back))
+    m = back.factor("msg").model
+    assert isinstance(m, it.GaussianJoint) and m.zdim == 9
+    assert m.manifolds == (manifolds.SE2(), manifolds.SE3())
+    np.testing.assert_array_equal(m.cov.numpy(), C)
+    np.testing.assert_array_equal(m.p0s[1].numpy(), p3)
+    np.testing.assert_array_equal(back.var("p").parametric_point.numpy(),
+                                  p2 + 1.0)
+    np.testing.assert_array_equal(back.var("p").parametric_cov.numpy(),
+                                  np.eye(3))
+    assert back.var("q").parametric_point is None
+    fj = build(jl, jm, GaussianJoint)
+    _assert_same_parameters(
+        it.graph_to_arrays(it.graph_from_arrays(jax_graph_to_arrays(fj),
+                                                device="cpu")), spec)

@@ -5,8 +5,7 @@ Deterministic functions (``mmd``, ``factor_jacobian``, the solved half of
 ``approx_deconv``, the path queries, ``generate_msg_joint``'s structure) are
 held against the JAX package on the same inputs at atol 1e-4 unless said
 otherwise.  The cases of tests/test_deconv_gradients.py and
-tests/test_joint_messages.py run on the port at their own bars (all but the
-tether case, which needs the parametric stack).
+tests/test_joint_messages.py run on the port at their own bars.
 """
 
 import jax.numpy as jnp
@@ -480,3 +479,38 @@ def test_line_step_with_joint_messages_holds_its_bar():
     assert any(m.jointmsg is not None for m in tree.up_msgs.values())
     for i in range(0, 9, 2):
         assert abs(float(fg.points(f"x{i}").mean()) - i) < 1.5, i
+
+
+def test_solve_factor_parametric_and_tether():
+    """tests/test_deconv_gradients.py:64-83 on the port, and the same chain
+    through the JAX package's tether from the same particles."""
+    from incrementalinference.jl_tpu import tether as jtether
+
+    fj = jl.initfg()
+    prev = None
+    for i in range(4):
+        fj.add_variable(f"x{i}", jl.ContinuousScalar)
+        if i == 0:
+            fj.add_factor(["x0"], jl.Prior(jl.Normal(0.0, 0.1)))
+        else:
+            fj.add_factor([prev, f"x{i}"],
+                          jl.LinearRelative(jl.Normal(5.0, 0.5)),
+                          graphinit=False)
+        prev = f"x{i}"
+    fg = it.graph_from_arrays(jax_graph_to_arrays(fj), device="cpu")
+    chain = [fl for fl in fg.lsf() if len(fg.factor(fl).variables) == 2]
+    end = it.accumulate_factor_means(fg, chain)
+    assert abs(float(end[0]) - 15.0) < 0.5, end
+    np.testing.assert_allclose(
+        end.numpy(), np.asarray(jtether.accumulate_factor_means(fj, chain)),
+        atol=1e-4)
+    single = it.solve_factor_parametric(fg, chain[0], "x1",
+                                        values={"x0": t([100.0])})
+    assert abs(float(single[0]) - 105.0) < 0.2
+    prior = it.solve_factor_parametric(fg, fg.lsf()[0], "x0")
+    np.testing.assert_allclose(prior.numpy(), [0.0])
+    # re-anchor the last relative on x0
+    it.rebase_factor_variable(fg, chain[-1], "x2", "x0")
+    assert fg.factor(chain[-1]).variables == ("x0", "x3")
+    assert chain[-1] in fg.factors_of("x0")
+    assert chain[-1] not in fg.factors_of("x2")

@@ -338,18 +338,15 @@ def test_se2_multihypo_landmark_association():
 
 
 def test_hexagonal_nonparam_vs_parametric():
-    """The port's nonparametric posterior means against the JAX package's
+    """The port's nonparametric posterior means against the port's own
     parametric optimum of the same graph (the JAX test's bar, 1.5 in SE(2)
-    dist), and against the ideal hexagon that chip_smoke.py uses in its
-    place."""
-    from incrementalinference.jl_tpu.parametric import solve_graph_parametric
-
+    dist), and against the ideal hexagon."""
     fg = it.generate_hexagonal(graphinit=True, device=CPU)
     it.solve_tree(fg)
-    fj = jl.canonical.generate_hexagonal(graphinit=False)
-    solve_graph_parametric(fj)
+    fp = it.generate_hexagonal(graphinit=False, device=CPU)
+    it.solve_graph_parametric(fp)
 
-    se2, se2j = SE2(), jm.SE2()
+    se2 = SE2()
     ideal = torch.zeros(3)
     for i in range(1, 7):
         ideal = se2.exp(ideal, torch.tensor([10.0, 0.0, math.pi / 3]))
@@ -357,12 +354,12 @@ def test_hexagonal_nonparam_vs_parametric():
         if v not in ("x1", "x3", "x6"):
             continue
         mu_np = se2.mean(fg.points(v))
-        mu_p = fj.var(v).parametric_point
-        d = float(se2j.dist(jnp.asarray(mu_np.numpy()), mu_p))
-        assert d < 1.5, (v, d, mu_np, np.asarray(mu_p))
+        mu_p = fp.var(v).parametric_point
+        d = float(se2.dist(mu_np, mu_p))
+        assert d < 1.5, (v, d, mu_np, mu_p)
         assert float(se2.dist(mu_np, ideal)) < 1.5, (v, mu_np, ideal)
-        # the stand-in is a fair one: the optimum sits on the ideal hexagon
-        assert float(se2j.dist(jnp.asarray(ideal.numpy()), mu_p)) < 0.5
+        # the optimum sits on the ideal hexagon
+        assert float(se2.dist(ideal, mu_p)) < 0.5, (v, mu_p, ideal)
 
 
 def test_translation_group_manifold_prior_factor():

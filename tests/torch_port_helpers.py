@@ -62,7 +62,10 @@ def _fields(model, skip=()) -> dict:
     from incrementalinference_torch.models import MODEL_REGISTRY
 
     to = {"Z": _dist, "manifold": manifold_to,
-          "p0": lambda a: np.asarray(a, np.float32), "partial": list}
+          "p0": lambda a: np.asarray(a, np.float32), "partial": list,
+          "manifolds": lambda ms: [manifold_to(m) for m in ms],
+          "p0s": lambda ps: [np.asarray(p, np.float32) for p in ps],
+          "cov": lambda a: np.asarray(a, np.float32)}
     return {k: to[k](getattr(model, k))
             for k in MODEL_REGISTRY[type(model).__name__][1]
             if k not in skip}
@@ -77,9 +80,14 @@ def _model(model) -> dict:
     return _fields(model)
 
 
+def _array(a):
+    return None if a is None else np.asarray(a, np.float32)
+
+
 def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
     """The spec dict of incrementalinference_torch.convert, built from a
-    JAX-package FactorGraph (its beliefs as numpy arrays)."""
+    JAX-package FactorGraph (its beliefs and parametric state as numpy
+    arrays)."""
     import dataclasses
 
     from incrementalinference_torch.convert import manifold_to
@@ -93,7 +101,9 @@ def jax_graph_to_arrays(fg, solve_key: str = "default") -> dict:
             "solvable": v.solvable, "tags": sorted(v.tags),
             "points": None if b is None else np.asarray(b.points),
             "bw": None if b is None else np.asarray(b.bw),
-            "ipc": None if b is None else np.asarray(b.ipc)})
+            "ipc": None if b is None else np.asarray(b.ipc),
+            "parametric_point": _array(v.parametric_point),
+            "parametric_cov": _array(v.parametric_cov)})
     factors = []
     for f in fg.factors.values():
         d = {"label": f.label, "type": type(f.model).__name__,
