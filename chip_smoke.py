@@ -45,9 +45,21 @@ Phases (any failure exits non-zero before the result line; none is caught):
    kernel at dof 3 and dof 6 (launches must grow; Karcher means within 0.2
    of truth, per-dof tangent std within (0.2, 1.5) x the prior's);
    LineStep(20) once more with joint up-messages (use_msg_likelihoods);
+   Then the model families and the graph and tree surfaces, each solve
+   through ``solve_tree`` on CUDA at N = 50,000 with the kernel's launch
+   count asserted to grow: the two-variable graph with a network-ensemble
+   mixture relative (MixtureFluxModels over an 8-member conv
+   SequentialNet), the forced ODE of tests/test_extensions.py:178-226 (a
+   DERelative with the ramp as ``data``; one proposal for each variable
+   is counted first: its LM iterations and Jacobian passes) and a landmark
+   with a HeatmapGridDensity prior seen from a pose on R² (products at dof
+   2); the n-ary decay-rate DERelative at N = 100; deepcopy_graph,
+   remove_variable and a re-solve on the card, ppe_batched against ppe on
+   the hexagon's poses, and the clique accessors over its tree;
 7. time the kernel, its plain version and one library route
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
-   same three on the inputs the SE(2) and SE(3) solves handed the kernel,
+   same three on the inputs the SE(2), SE(3) and heatmap (dof 2) solves
+   handed the kernel,
    and the kernel beside its bound at four more (n, dof);
 8. the parametric stack (no kernel on its path: each phase asserts that
    the row-logsumexp launched 0 times): solve_graph_parametric on
@@ -505,7 +517,7 @@ def phase_hexagonal(it):
     PERF.md).  The Karcher means of x1, x3 and x6 within 1.5 (SE(2)
     dist) of the ideal hexagon, composed from the noiseless step, and of
     the port's parametric optimum of the same graph (the JAX package's
-    test and bar).  Returns (wall, the solved graph)."""
+    test and bar).  Returns (wall, the solved graph, its tree)."""
     se2 = it.SE2()
     step = torch.tensor(_SE2_STEP, device="cuda")
     ideal, p = {}, se2.identity("cuda")
@@ -516,7 +528,7 @@ def phase_hexagonal(it):
     fg = it.generate_hexagonal(graphinit=True, device="cuda")
     torch.cuda.synchronize()
     t0 = time.time()
-    it.solve_tree(fg)
+    tree = it.solve_tree(fg)
     torch.cuda.synchronize()
     wall = time.time() - t0
     dists = {}
@@ -545,7 +557,7 @@ def phase_hexagonal(it):
           f"{ {k: round(v, 3) for k, v in to_opt.items()} } (its "
           f"solve_graph_parametric from the identity {t_p:.3f} s)",
           flush=True)
-    return wall, fg
+    return wall, fg, tree
 
 
 def phase_circular(it):
@@ -667,6 +679,275 @@ def phase_joint(it):
           f"{sum(len(j.relatives) for j in joint)} relatives and "
           f"{sum(len(j.priors) for j in joint)} priors in them; pose means "
           f"{ {k: round(v, 3) for k, v in means.items()} }", flush=True)
+
+
+# -- slices 7 and 9a: the model families and the graph and tree surfaces ----
+
+#: the conv ensemble of tests/test_extensions.py:306-307
+_CONV_SPEC = (("conv2d", 1, 4, 3), ("relu",), ("maxpool2d", 2),
+              ("flatten",), ("dense", 4 * 4 * 4, 1))
+#: the forcing grid of tests/test_extensions.py:188-195: u(t) = 2t sampled
+#: at t = 0, 0.25, ..., 2
+_RAMP_T0, _RAMP_DT, _RAMP_N = 0.0, 0.25, 9
+
+
+def _forced(t, x, u):
+    """ẋ = −x/2 + u(t), u linearly interpolated in the ``data`` rows
+    (tgrid, ugrid): jnp.interp's values on this uniform grid.  The cell is
+    found from the Python float ``t`` on the host, and −x/2 is an
+    alpha-add: under torch.func's forward mode a product with a constant
+    takes a Python decomposition of the host's time."""
+    s = min(max((t - _RAMP_T0) / _RAMP_DT, 0.0), _RAMP_N - 1.0)
+    i = min(int(s), _RAMP_N - 2)
+    return torch.add(torch.lerp(u[1, i], u[1, i + 1], s - i), x, alpha=-0.5)
+
+
+def _solve_timed(it, fg):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tree = it.solve_tree(fg)
+    torch.cuda.synchronize()
+    return time.time() - t0, tree
+
+
+def phase_flux_mixture(it, K, N=50_000):
+    """_two_var_graph with a network-ensemble mixture as its relative:
+    MixtureFluxModels(LinearRelative, an 8-member conv ensemble on an
+    8×8×1 image, [Normal(10, 1)], [0.5, 0.5]); every product of x1 is a
+    large pair product.  Bars: finite points, at least 5 % of x1 in (5, 15)
+    (tests/test_extensions.py:290-325).  Returns the kernel launches."""
+    from incrementalinference_torch import keys
+
+    params = it.nn_init(keys.generator(7, "cuda"), _CONV_SPEC, n_models=8)
+    nn = it.FluxModelsDistribution(it.SequentialNet(_CONV_SPEC), params,
+                                   torch.full((8, 8, 1), 0.1), out_dim=1)
+    K.reset_counts()
+    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device="cuda")
+    fg.add_variable("x0", it.ContinuousScalar)
+    fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 1.0)))
+    fg.add_variable("x1", it.ContinuousScalar)
+    fg.add_factor(["x0", "x1"], it.MixtureFluxModels(
+        it.LinearRelative, nn, [it.Normal(10.0, 1.0)], [0.5, 0.5]))
+    fg.add_factor(["x1"], it.Prior(it.Normal(10.0, 1.0)))
+    wall, _ = _solve_timed(it, fg)
+    launches = K.counts["launches"]
+    check(launches > 0, "the flux mixture N=50k solve never launched the "
+                        "row_logsumexp kernel")
+    x1 = fg.points("x1")[:, 0]
+    check(bool(torch.isfinite(fg.points("x0")).all())
+          and bool(torch.isfinite(x1).all()), "flux mixture: non-finite")
+    near10 = float(((x1 > 5.0) & (x1 < 15.0)).float().mean())
+    near0 = float(((x1 > -3.0) & (x1 < 3.0)).float().mean())
+    check(near10 >= 0.05, f"flux mixture: {near10} of x1 in (5, 15)")
+    print(f"PASS flux mixture N={N} (8-member conv ensemble) solve_tree on "
+          f"CUDA through the kernel: {wall:.3f} s (graph build with "
+          f"graphinit included in no wall); launches {launches}; x1 share "
+          f"in (5, 15) {near10:.3f}, in (-3, 3) {near0:.3f}; ensemble "
+          f"outputs {nn.all_outputs('cuda')[:, 0].tolist()}", flush=True)
+    return launches
+
+
+def phase_forced_ode(it, K, N=50_000, steps=32, nary_steps=16):
+    """The forced ODE of tests/test_extensions.py:178-226 at N = 50,000:
+    a prior Normal(1, 0.05) on x0, the DERelative with the ramp as its
+    ``data``, a prior Normal(x1_truth, 0.05) on x1.  First one proposal for
+    each variable alone (its LM iterations, Jacobian and residual passes,
+    and wall), then the solve, whose products go through the kernel.  Bars
+    |mean(x1) − x1_truth| < 0.25, |mean(x0) − 1| < 0.25.  Then the n-ary
+    decay-rate graph of tests/test_extensions.py:229-254 at N = 100
+    (|mean(k) − 0.7| < 0.15), its RK4 steps cut from 32 to 16 for the
+    script's time (85 s at 32 steps on the card's host, PERF.md).  Returns
+    the kernel launches of the N = 50k solve."""
+    from incrementalinference_torch.ops import convolve
+
+    tgrid = torch.linspace(_RAMP_T0, _RAMP_T0 + _RAMP_DT * (_RAMP_N - 1),
+                           _RAMP_N)
+    de = it.DERelative(_forced, t0=0.0, t1=2.0, Z=it.MvNormal([0.0], [0.01]),
+                       dim=1, steps=steps,
+                       data=torch.stack([tgrid, 2.0 * tgrid]))
+    x1_truth = float(de.flow(torch.tensor([1.0], device="cuda"))[0])
+    analytic = 4 * 2.0 - 8.0 + 9.0 * math.exp(-1.0)
+    check(abs(x1_truth - analytic) < 1e-3, f"flow {x1_truth} vs {analytic}")
+    K.reset_counts()
+    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device="cuda")
+    fg.add_variable("x0", it.ContinuousScalar)
+    fg.add_factor(["x0"], it.Prior(it.Normal(1.0, 0.05)))
+    fg.add_variable("x1", it.ContinuousScalar)
+    f = fg.add_factor(["x0", "x1"], de)
+    fg.add_factor(["x1"], it.Prior(it.Normal(x1_truth, 0.05)))
+    build_launches = K.counts["launches"]
+
+    counted = {"jac": 0, "res": 0}
+    orig_jacfwd, orig_res = convolve.jacfwd, de.residual
+
+    def jacfwd(fn, *a, **k):
+        g = orig_jacfwd(fn, *a, **k)
+
+        def h(*x, **y):
+            counted["jac"] += 1
+            return g(*x, **y)
+        return h
+
+    def residual(*a):
+        counted["res"] += 1
+        return orig_res(*a)
+
+    probes = {}
+    convolve.jacfwd, de.residual = jacfwd, residual
+    try:
+        for target in ("x1", "x0"):
+            counted.update(jac=0, res=0)
+            spec = convolve.make_conv_spec(fg, f, target)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            convolve.eval_factor(fg, f, target)
+            torch.cuda.synchronize()
+            probes[target] = (spec.cycles * spec.iters, counted["jac"],
+                              counted["res"] - counted["jac"],
+                              round(time.time() - t0, 3))
+    finally:
+        convolve.jacfwd = orig_jacfwd
+        del de.residual
+    print(f"one DERelative proposal at N={N}, {steps} RK4 steps (cycles x "
+          f"LM iterations, Jacobian passes, residual-only passes, s): "
+          f"{probes}", flush=True)
+
+    K.reset_counts()
+    wall, _ = _solve_timed(it, fg)
+    launches = K.counts["launches"]
+    check(launches > 0, "the forced ODE N=50k solve never launched the "
+                        "row_logsumexp kernel")
+    m0 = float(fg.points("x0").mean())
+    m1 = float(fg.points("x1").mean())
+    check(abs(m1 - x1_truth) < 0.25, f"forced ODE x1 {m1} vs {x1_truth}")
+    check(abs(m0 - 1.0) < 0.25, f"forced ODE x0 {m0}")
+    print(f"PASS forced ODE N={N} ({steps} RK4 steps) solve_tree on CUDA "
+          f"through the kernel: {wall:.3f} s; launches {launches} (graph "
+          f"build with graphinit {build_launches}); mean x0 {m0:.4f} "
+          f"(1), x1 {m1:.4f} ({x1_truth:.4f})", flush=True)
+
+    def decay(t, x, k):
+        return -k[..., :1] * x
+
+    fk = it.initfg(device="cuda")
+    for v in ("x0", "x1", "k"):
+        fk.add_variable(v, it.ContinuousScalar)
+    fk.add_factor(["x0"], it.Prior(it.Normal(2.0, 0.02)))
+    fk.add_factor(["x1"], it.Prior(it.Normal(2.0 * math.exp(-1.4), 0.02)))
+    fk.add_factor(["k"], it.Prior(it.Normal(0.5, 0.5)))
+    fk.add_factor(["x0", "x1", "k"], it.DERelative(
+        decay, t0=0.0, t1=2.0, Z=it.MvNormal([0.0], [1e-4]), dim=1,
+        steps=nary_steps))
+    wall_k, _ = _solve_timed(it, fk)
+    mk = float(fk.points("k").mean())
+    check(abs(mk - 0.7) < 0.15, f"n-ary DERelative: mean(k) {mk}")
+    print(f"PASS n-ary DERelative (decay rate k) N=100, {nary_steps} RK4 "
+          f"steps, solve_tree on CUDA: {wall_k:.3f} s; mean(k) {mk:.4f} "
+          f"(0.7)", flush=True)
+    return launches
+
+
+def phase_heatmap(it, K, N=50_000):
+    """A pose x0 on R² with prior MvNormal([60, 30], [2, 2]), a landmark l
+    with a HeatmapGridDensity prior (the Gaussian bump at (70, 30), sigma
+    5, on the 50 × 40 grid over [0, 100]² of tests/test_extensions.py:
+    29-31) and LinearRelative(MvNormal([10, 0], [1, 1])) between them:
+    every product of l is a large pair product at dof 2.  Bar: each
+    coordinate of mean(l) within 2 of (70, 30).  Returns (launches, the
+    last inputs the solve handed the kernel's wrapper)."""
+    from incrementalinference_torch.ops import product
+
+    xs = torch.linspace(0.0, 100.0, 50)
+    ys = torch.linspace(0.0, 100.0, 40)
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    bump = torch.exp(-((X - 70.0) ** 2 + (Y - 30.0) ** 2) / (2 * 5.0 ** 2))
+    handed, wrapper = [], product.pair_row_logsumexp
+
+    def recording(muA, precA, muB, precB):
+        handed[:] = [muA, precA, muB, precB]
+        return wrapper(muA, precA, muB, precB)
+
+    K.reset_counts()
+    product.pair_row_logsumexp = recording
+    try:
+        fg = it.initfg(it.SolverParams(N=N, batch_cliques=False),
+                       device="cuda")
+        fg.add_variable("x0", it.ContinuousEuclid(2))
+        fg.add_factor(["x0"], it.Prior(it.MvNormal([60.0, 30.0],
+                                                   [2.0, 2.0])))
+        fg.add_variable("l", it.ContinuousEuclid(2))
+        fg.add_factor(["l"], it.Prior(it.HeatmapGridDensity(bump,
+                                                            (xs, ys))))
+        fg.add_factor(["x0", "l"], it.LinearRelative(
+            it.MvNormal([10.0, 0.0], [1.0, 1.0])))
+        wall, _ = _solve_timed(it, fg)
+    finally:
+        product.pair_row_logsumexp = wrapper
+    launches = K.counts["launches"]
+    check(launches > 0, "the heatmap N=50k solve never launched the "
+                        "row_logsumexp kernel")
+    check(handed and handed[0].shape == (N, 2),
+          f"heatmap: the kernel was not handed ({N}, 2) inputs")
+    mean_l = fg.points("l").mean(0).tolist()
+    check(abs(mean_l[0] - 70.0) < 2.0 and abs(mean_l[1] - 30.0) < 2.0,
+          f"heatmap landmark mean {mean_l}")
+    print(f"PASS heatmap landmark N={N} (dof 2) solve_tree on CUDA through "
+          f"the kernel: {wall:.3f} s; launches {launches}; mean(l) "
+          f"{[round(v, 3) for v in mean_l]} (70, 30), mean(x0) "
+          f"{[round(v, 3) for v in fg.points('x0').mean(0).tolist()]}",
+          flush=True)
+    return launches, [t.clone() for t in handed]
+
+
+def phase_surfaces(it, K, hexagon, hex_tree, N=50_000):
+    """The graph and tree surfaces on CUDA: deepcopy_graph of the N = 50k
+    two-variable graph keeps every tensor on the card, remove_variable and
+    a re-solve of what is left, ppe_batched of the hexagon's poses against
+    ppe one by one (1e-5), and the clique accessors over the hexagon's
+    solved tree."""
+    from incrementalinference_torch import beliefs
+
+    t_all = time.time()
+    fg = _two_var_graph(it, N)
+    cp = it.deepcopy_graph(fg)
+    tensors = [t for v in cp.variables.values() for b in v.beliefs.values()
+               for t in b]
+    check(cp.device.type == "cuda" and tensors
+          and all(t.device.type == "cuda" for t in tensors),
+          "deepcopy_graph left a tensor off the card")
+    K.reset_counts()
+    cp.remove_variable("x1")
+    check(cp.ls() == ["x0"] and len(cp.lsf()) == 1 and fg.exists("x1"),
+          "remove_variable: the copy or the original is wrong")
+    wall, _ = _solve_timed(it, cp)
+    m0 = float(cp.points("x0").mean())
+    check(abs(m0) < 0.2, f"after remove_variable: mean(x0) {m0}")
+
+    poses = [v for v in hexagon.ls() if v.startswith("x")]
+    se2 = hexagon.var(poses[0]).manifold
+    bel = [hexagon.get_belief(v) for v in poses]
+    batched = beliefs.ppe_batched(se2, bel)
+    err = max(float((a[k] - b[k]).abs().max())
+              for a, b in zip(batched, (beliefs.ppe(se2, x) for x in bel))
+              for k in ("mean", "max"))
+    check(err <= 1e-5, f"ppe_batched vs ppe: {err}")
+
+    depths = {}
+    for cid, cl in hex_tree.cliques.items():
+        d = it.get_cliq_depth(hex_tree, cl)
+        check(hex_tree.is_root(cid) == (d == 0) == (it.get_parent(
+            hex_tree, cl) is None), f"clique {cid}: root and depth disagree")
+        depths[cid] = d
+    total, marg, reused, both = it.calc_cliques_recycled(hex_tree)
+    check(total == hex_tree.num_cliques(), "calc_cliques_recycled total")
+    check(it.is_tree_solved(hex_tree), "the hexagon's tree is not solved")
+    print(f"PASS graph and tree surfaces on CUDA: deepcopy_graph of N={N} "
+          f"kept {len(tensors)} tensors on the card; remove_variable and "
+          f"re-solve {wall:.3f} s (mean(x0) {m0:.4f}, launches "
+          f"{K.counts['launches']}); ppe_batched of {len(poses)} SE(2) "
+          f"poses within {err:.2e} of ppe; hexagon tree depths {depths}, "
+          f"calc_cliques_recycled {(total, marg, reused, both)}; "
+          f"{time.time() - t_all:.3f} s", flush=True)
 
 
 def timing_inputs(K, n, dof, dev):
@@ -1261,7 +1542,7 @@ def main() -> int:
           f"the N=50k fourdoor solves never launched the row_logsumexp "
           f"kernel: {fd_launches}")
     phase_euclid(it, "cuda")
-    _, hexagon = phase_hexagonal(it)
+    _, hexagon, hex_tree = phase_hexagonal(it)
     phase_circular(it)
     by_path, handed_by_path = {}, {}
     for M, name, step, sigma, N in _manifold_setups():
@@ -1271,6 +1552,19 @@ def main() -> int:
         by_path[path] = n_launches
         handed_by_path[path] = (n_launches, handed)
     phase_joint(it)
+    t_new = time.time()
+    by_path["flux mixture N=50000 (dof 1), one solve"] = \
+        phase_flux_mixture(it, K)
+    by_path["forced ODE N=50000 (dof 1), one solve"] = \
+        phase_forced_ode(it, K)
+    n_heat, handed = phase_heatmap(it, K)
+    path = "heatmap landmark N=50000 (dof 2), one solve"
+    by_path[path] = n_heat
+    handed_by_path[path] = (n_heat, handed)
+    phase_surfaces(it, K, hexagon, hex_tree)
+    del hex_tree
+    print(f"# slices 7 and 9a phases: {time.time() - t_new:.1f} s",
+          flush=True)
     by_path["parametric LineStep(1000), dense and cg"] = \
         phase_param_linestep(it, K, dev)
     by_path["parametric SE(3) chain of 60, autoinit and solves"] = \

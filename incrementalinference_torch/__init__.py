@@ -11,7 +11,9 @@ from .api import (approx_cliq_marginal_up, fifo_freeze, set_ppe,
                   solve_cliq_down, solve_cliq_up,
                   solve_cliq_with_state_machine, solve_graph, solve_tree)
 from . import manifolds
-from .beliefs import Belief, make_belief
+from .beliefs import (Belief, kde_logpdf, kde_sample, make_belief, mean_cov,
+                      ppe)
+from . import canonical
 from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
                         generate_euclid_distance, generate_hexagonal,
                         generate_kaess, generate_line_step,
@@ -22,15 +24,18 @@ from .distributions import (AliasingScalarSampler, Categorical,
                             ManifoldKernelDensity, MvNormal, Normal, Rayleigh,
                             Uniform, manikde)
 from .graph import (Circular, ContinuousEuclid, ContinuousScalar, Factor,
-                    FactorGraph, Position, Variable, VariableType, initfg)
+                    FactorGraph, Position, Position1, Position2, Position3,
+                    Position4, Variable, VariableType, initfg)
 from .graphinit import doautoinit, init_all, init_variable, \
     reset_initial_values
 from .manifolds import SE2, SE3, SO2, SO3, Circle, Euclidean
-from .models import (CircularCircular, EuclidDistance, FactorModel,
-                     GaussianJoint, GenericMarginal, LinearRelative,
-                     ManifoldFactor,
-                     ManifoldPrior, MetaPrior, Mixture, MsgPrior,
-                     PartialPrior, Prior, PriorCircular, PriorModel,
+from .models import (CircularCircular, DERelative, EuclidDistance,
+                     FactorModel, FluxModelsDistribution, GaussianJoint,
+                     GenericMarginal, HeatmapGridDensity, LevelSetGridNormal,
+                     LinearRelative, ManifoldFactor, ManifoldPrior,
+                     MetaPrior, Mixture, MixtureFluxModels, MsgPrior,
+                     PartialPrior, PartialPriorPassThrough, Prior,
+                     PriorCircular, PriorModel, SequentialNet, nn_init,
                      register_factor_model)
 from .ops.convolve import approx_conv_belief, eval_factor, sample_factor
 from .ops.deconv import approx_deconv, approx_deconv_belief, mmd
@@ -45,8 +50,15 @@ from .parametric import (autoinit_parametric, init_parametric_from,
                          solve_graph_parametric, solve_tree_parametric)
 from .tether import (accumulate_factor_means, rebase_factor_variable,
                      solve_factor_parametric)
-from .tree import BayesTree, CliqStatus, build_tree, build_tree_reset
-from .utils import select_factor_type
+from .tree import (BayesTree, CliqStatus, build_tree, build_tree_reset,
+                   get_elimination_order)
+from .utils import (compare_all_special, compare_beliefs, compare_factors,
+                    compare_graphs, compare_variables, incr_suffix,
+                    select_factor_type)
+from . import fgos
+from .fgos import *  # noqa: F401,F403 — graph accessor surface
+from .tree import accessors as tree_accessors
+from .tree.accessors import *  # noqa: F401,F403 — clique accessor surface
 
 __version__ = "0.1.0"
 
@@ -77,4 +89,12 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "solve_conditionals_parametric", "autoinit_parametric",
            "init_parametric_from", "solve_tree_parametric",
            "solve_factor_parametric", "accumulate_factor_means",
-           "rebase_factor_variable"]
+           "rebase_factor_variable", "kde_logpdf", "kde_sample", "mean_cov",
+           "ppe", "canonical", "Position1", "Position2", "Position3",
+           "Position4", "DERelative", "FluxModelsDistribution",
+           "HeatmapGridDensity", "LevelSetGridNormal", "MixtureFluxModels",
+           "PartialPriorPassThrough", "SequentialNet", "nn_init",
+           "get_elimination_order", "compare_all_special",
+           "compare_beliefs", "compare_factors", "compare_graphs",
+           "compare_variables", "incr_suffix", "fgos", "tree_accessors",
+           *fgos.__all__, *tree_accessors.__all__]

@@ -138,17 +138,39 @@ def mean_cov(manifold: Manifold, points: torch.Tensor):
     return mu, cov
 
 
+def _ppe_core(manifold: Manifold, pts: torch.Tensor, bw: torch.Tensor):
+    """Karcher mean and max-density particle of particle sets
+    ``pts`` (..., N, point_dim) with bandwidths ``bw`` (..., dof)."""
+    mu = manifold.mean(pts)
+    X = manifold.log(pts[..., None, :, :], pts[..., :, None, :])
+    z = X / bw[..., None, None, :]
+    logk = -0.5 * torch.sum(z * z, dim=-1)                     # (..., Q, N)
+    lognorm = (torch.sum(torch.log(bw), dim=-1)
+               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
+    lp = (torch.logsumexp(logk, dim=-1) - math.log(float(pts.shape[-2]))
+          - lognorm[..., None])
+    sel = (lp == torch.amax(lp, dim=-1, keepdim=True)).to(pts.dtype)
+    pmax = ((sel[..., None] * pts).sum(-2)
+            / torch.clamp(sel.sum(-1), min=1.0)[..., None])
+    return mu, pmax
+
+
 def ppe(manifold: Manifold, belief: Belief):
     """Posterior point estimates (reference calcPPE → MeanMaxPPE):
     mean = Karcher mean, max = suggested = the particle of highest KDE
     density (ties averaged, as in the JAX package)."""
-    pts = belief.points
-    mu = manifold.mean(pts)
-    lp = kde_logpdf(manifold, Belief(points=pts, bw=belief.bw,
-                                     ipc=belief.bw), pts)
-    sel = (lp == torch.max(lp)).to(pts.dtype)
-    pmax = (sel[:, None] * pts).sum(0) / torch.clamp(sel.sum(), min=1.0)
+    mu, pmax = _ppe_core(manifold, belief.points, belief.bw)
     return {"mean": mu, "max": pmax, "suggested": pmax}
+
+
+def ppe_batched(manifold: Manifold, beliefs):
+    """:func:`ppe` of several same-shape beliefs on one manifold, in one
+    batched pass (the JAX package's per-clique frontal write-back)."""
+    mus, pmaxs = _ppe_core(manifold,
+                           torch.stack([b.points for b in beliefs]),
+                           torch.stack([b.bw for b in beliefs]))
+    return [{"mean": mu, "max": pm, "suggested": pm}
+            for mu, pm in zip(mus, pmaxs)]
 
 
 def is_partial(belief: Belief) -> bool:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import SolverParams
@@ -26,7 +27,7 @@ from .models import (EuclidDistance, FactorModel, LinearRelative,
 __all__ = ["generate_kaess", "generate_test_symbolic",
            "generate_caesar_ring1d", "generate_line_step",
            "generate_euclid_distance", "generate_hexagonal",
-           "fourdoor_sequence"]
+           "fourdoor_sequence", "calc_helix_T"]
 
 
 def generate_kaess(graphinit: bool = False,
@@ -227,3 +228,19 @@ def fourdoor_sequence(params: Optional[SolverParams] = None, device=None
         fg.add_factor(["x4"], door)
 
     return fg, [step1, step2, step3]
+
+
+def calc_helix_T(t_start=0.0, t_stop=1.0, points_per_turn=20,
+                 direction=-1, radius=0.5, spine=lambda t: 0.0 + 0.0j):
+    """Helix trajectory (reference calcHelix_T): returns (T, xy (n, 2),
+    yaw (n,)) as numpy arrays, the yaw from a forward difference."""
+    T = np.arange(t_start, t_stop * points_per_turn + 1) / points_per_turn
+
+    def f(t):
+        return radius * (np.exp(1j * (np.pi + direction * 2 * np.pi * t))
+                         + 1 + spine(t))
+
+    vals = np.array([f(t) for t in T])
+    h = 1e-8
+    grad = np.array([(f(t + h) - f(t)) / h for t in T])
+    return (T, np.stack([vals.real, vals.imag], axis=1), np.angle(grad))

@@ -38,6 +38,18 @@ GaussianJoint's ``"manifolds"`` (manifold dicts), ``"p0s"`` (arrays) and
 ``"cov"``.
 A manifold dict is ``{"type": "SE2"}``, ``{"type": "Euclidean", "n": 2}`` or
 ``{"type": "Product", "components": [manifold dicts]}``.
+
+The model families travel too.  A grid density is
+``{"type": "HeatmapGridDensity", "data", "xs", "ys", "N"}`` or
+``{"type": "LevelSetGridNormal", "data", "xs", "ys", "level", "sigma"}``
+(``data`` the raw grid).  A network ensemble is
+``{"type": "FluxModelsDistribution", "net": "mlp" | [layer specs],
+"params": [[W, b], ...], "data", "out_dim", "shuffle"}`` with the stacked
+parameters in the JAX package's layout (conv weights HWIO); see
+:func:`ensemble_params_from`.  A DERelative factor carries ``"Z"``,
+``"t0"``, ``"t1"``, ``"steps"`` and ``"data"``; its dynamics function is
+Python code, so :func:`graph_from_arrays` takes it from ``functions``, a
+mapping from factor label to function.
 """
 
 from __future__ import annotations
@@ -51,14 +63,18 @@ import torch
 
 from .config import SolverParams
 from . import distributions as _d
+from .distributions import host32
 from . import manifolds as _m
 from .graph import (Circular, ContinuousEuclid, ContinuousScalar,
                     FactorGraph, Position, VariableType)
 from .manifolds import Euclidean
+from .models.densities import HeatmapGridDensity, LevelSetGridNormal
 from .models.factors import MODEL_REGISTRY, Mixture
+from .models.flux import FluxModelsDistribution, SequentialNet, mlp_apply
+from .models.ode import DERelative
 
 __all__ = ["graph_from_arrays", "graph_to_arrays", "manifold_from",
-           "manifold_to"]
+           "manifold_to", "ensemble_params_from", "ensemble_params_to"]
 
 #: manifolds without parameters, by class name
 _PLAIN_MANIFOLDS = ("Circle", "SO2", "SE2", "SO3", "SE3", "Sphere2")
@@ -111,10 +127,49 @@ _DIST_FIELDS = {"Normal": ("mu", "sigma"), "MvNormal": ("mu", "cov"),
                 "AliasingScalarSampler": ("x", "weights")}
 
 
+def ensemble_params_from(params) -> list:
+    """Stacked ensemble parameters in the JAX package's layout (a list of
+    (W, b) arrays: dense W (E, out, in), conv W HWIO (E, k, k, in, out)) as
+    the port's float32 CPU tensors (conv W (E, out, in, k, k))."""
+    out = []
+    for W, b in params:
+        W = host32(W)
+        if W.ndim == 5:
+            W = W.transpose(0, 4, 3, 1, 2)
+        out.append((torch.tensor(np.ascontiguousarray(W)),
+                    torch.tensor(host32(b))))
+    return out
+
+
+def ensemble_params_to(params) -> list:
+    """The inverse of :func:`ensemble_params_from`: [[W, b], ...] numpy
+    arrays in the JAX package's layout."""
+    out = []
+    for W, b in params:
+        W = host32(W)
+        if W.ndim == 5:
+            W = np.ascontiguousarray(W.transpose(0, 3, 4, 2, 1))
+        out.append([W, host32(b)])
+    return out
+
+
 def _dist_from(d: dict):
     if d["type"] == "ManifoldKernelDensity":
         return _d.ManifoldKernelDensity(Euclidean(int(d["dof"])),
                                         d["points"], bw=d.get("bw"))
+    if d["type"] == "HeatmapGridDensity":
+        return HeatmapGridDensity(d["data"], (d["xs"], d["ys"]),
+                                  N=int(d.get("N", 10000)))
+    if d["type"] == "LevelSetGridNormal":
+        return LevelSetGridNormal(d["data"], (d["xs"], d["ys"]),
+                                  level=float(d["level"]),
+                                  sigma=float(d["sigma"]))
+    if d["type"] == "FluxModelsDistribution":
+        net = (mlp_apply if d["net"] == "mlp"
+               else SequentialNet(d["net"]))
+        return FluxModelsDistribution(net, ensemble_params_from(d["params"]),
+                                      d["data"], int(d["out_dim"]),
+                                      shuffle=bool(d.get("shuffle", True)))
     if d["type"] not in _DIST_FIELDS:
         raise ValueError(f"unsupported distribution {d['type']!r}")
     return getattr(_d, d["type"])(*(np.asarray(d[f], np.float32)
@@ -125,15 +180,32 @@ def _dist_to(z) -> dict:
     name = type(z).__name__
     if name == "ManifoldKernelDensity":
         return {"type": name, "dof": z.manifold.dof,
-                "points": np.asarray(z.points),
-                "bw": None if z.bw is None else np.asarray(z.bw)}
+                "points": host32(z.points), "bw": host32(z.bw)}
+    if name == "HeatmapGridDensity":
+        return {"type": name, "data": z.data, "xs": z.xs, "ys": z.ys,
+                "N": z.N}
+    if name == "LevelSetGridNormal":
+        return {"type": name, "data": z.data, "xs": z.heatmap.xs,
+                "ys": z.heatmap.ys, "level": z.level, "sigma": z.sigma}
+    if name == "FluxModelsDistribution":
+        if isinstance(z.apply_fn, SequentialNet):
+            net = [list(layer) for layer in z.apply_fn.spec]
+        elif z.apply_fn is mlp_apply:
+            net = "mlp"
+        else:
+            raise ValueError("only a SequentialNet or mlp_apply network is "
+                             "carried as arrays")
+        return {"type": name, "net": net,
+                "params": ensemble_params_to(z.params),
+                "data": host32(z.data), "out_dim": z.out_dim,
+                "shuffle": bool(z.shuffle)}
     if name not in _DIST_FIELDS:
         raise ValueError(f"unsupported distribution {name}")
     return {"type": name,
             **{f: np.asarray(getattr(z, f)) for f in _DIST_FIELDS[name]}}
 
 
-def _model_from(f: dict):
+def _model_from(f: dict, functions: dict):
     if f["type"] not in MODEL_REGISTRY:
         raise ValueError(f"unsupported factor type {f['type']!r}")
     cls, _ = MODEL_REGISTRY[f["type"]]
@@ -145,7 +217,15 @@ def _model_from(f: dict):
             mechanics = mechanics(Z=components[0], **{
                 k: _FIELD_FROM[k](v) for k, v in extra.items()})
         return Mixture(mechanics, components, f["diversity"])
-    return cls(**{k: _FIELD_FROM[k](f[k]) for k in _carried(f["type"])})
+    kw = {k: _FIELD_FROM[k](f[k]) for k in _carried(f["type"])}
+    if cls is DERelative:
+        if f["label"] not in functions:
+            raise ValueError(
+                f"factor {f['label']!r} is a DERelative: its dynamics "
+                f"function is not carried as arrays, pass it as "
+                f"functions={{{f['label']!r}: f}}")
+        return cls(functions[f["label"]], **kw)
+    return cls(**kw)
 
 
 #: the parameter fields convert carries, each with its two directions; a
@@ -155,22 +235,18 @@ _FIELD_FROM = {"Z": _dist_from, "manifold": manifold_from,
                "partial": lambda t: tuple(int(i) for i in t),
                "manifolds": lambda ms: [manifold_from(m) for m in ms],
                "p0s": lambda ps: [np.asarray(p, np.float32) for p in ps],
-               "cov": lambda a: np.asarray(a, np.float32)}
+               "cov": lambda a: np.asarray(a, np.float32),
+               "t0": float, "t1": float, "steps": int,
+               "data": lambda a: None if a is None
+               else np.asarray(a, np.float32)}
 _FIELD_TO = {"Z": _dist_to, "manifold": manifold_to,
              "p0": lambda a: np.asarray(a, np.float32),
              "partial": list,
              "manifolds": lambda ms: [manifold_to(m) for m in ms],
-             "p0s": lambda ps: [_host(p) for p in ps],
-             "cov": lambda a: _host(a)}
-
-
-def _host(a):
-    """A tensor or array as a float32 numpy array (None stays None)."""
-    if a is None:
-        return None
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy().astype(np.float32)
-    return np.asarray(a, np.float32)
+             "p0s": lambda ps: [host32(p) for p in ps],
+             "cov": host32,
+             "t0": float, "t1": float, "steps": int,
+             "data": host32}
 
 
 def _carried(type_name: str):
@@ -198,10 +274,12 @@ def _tensor(a, device):
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
-def graph_from_arrays(spec: dict, device=None) -> FactorGraph:
+def graph_from_arrays(spec: dict, device=None,
+                      functions: dict | None = None) -> FactorGraph:
     """Build a :class:`FactorGraph` on ``device`` (CUDA by default) from
     the dict described in the module docstring.  Factors are added without
-    graphinit: the beliefs come from the dict."""
+    graphinit: the beliefs come from the dict.  ``functions`` maps the label
+    of each DERelative factor to its dynamics function."""
     params = SolverParams(**spec.get("params", {}))
     fg = FactorGraph(params, device=device)
     for v in spec["variables"]:
@@ -220,7 +298,8 @@ def graph_from_arrays(spec: dict, device=None) -> FactorGraph:
             if v.get(k) is not None:
                 setattr(var, k, _tensor(v[k], fg.device))
     for f in spec["factors"]:
-        fg.add_factor(f["variables"], _model_from(f), multihypo=f.get("multihypo"),
+        fg.add_factor(f["variables"], _model_from(f, functions or {}),
+                      multihypo=f.get("multihypo"),
                       nullhypo=f.get("nullhypo", 0.0), label=f["label"],
                       graphinit=False, tags=f.get("tags", ()),
                       solvable=f.get("solvable", 1))
@@ -242,8 +321,8 @@ def graph_to_arrays(fg: FactorGraph, solve_key: str = "default") -> dict:
             "points": None if b is None else b.points.cpu().numpy(),
             "bw": None if b is None else b.bw.cpu().numpy(),
             "ipc": None if b is None else b.ipc.cpu().numpy(),
-            "parametric_point": _host(v.parametric_point),
-            "parametric_cov": _host(v.parametric_cov),
+            "parametric_point": host32(v.parametric_point),
+            "parametric_cov": host32(v.parametric_cov),
         })
     factors = []
     for f in fg.factors.values():

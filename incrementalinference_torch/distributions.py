@@ -16,6 +16,16 @@ import numpy as np
 import torch
 
 
+def host32(a):
+    """A float32 host numpy copy of a tensor (on any device) or an array;
+    None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.array(a, np.float32)
+
+
 def _on_device(cache: dict, device, arrays):
     """``arrays`` as tensors on ``device``, made once per device."""
     key = str(device)
@@ -209,56 +219,69 @@ class AliasingScalarSampler(Distribution):
 class ManifoldKernelDensity(Distribution):
     """A particle KDE usable anywhere a measurement distribution goes: a
     Prior's density, a mixture component, a relative measurement (the user
-    side of the reference's ``manikde!``).
+    side of the reference's ``manikde``).
 
     ``manifold`` must be a coordinate manifold (point_dim == dof), since
-    measurement samples are coordinate rows.  Points and bandwidth are kept
-    on the host; the belief is made on a device the first time a draw or a
-    density is asked for there (its bandwidth LOO-selected when ``bw`` is
-    omitted)."""
+    measurement samples are coordinate rows.  As in the JAX package,
+    ``belief`` is the KDE's :class:`~.beliefs.Belief`, made once, its
+    bandwidth LOO-selected when ``bw`` is omitted: on the
+    device of the points it was given (host numpy points make a CPU belief).
+    ``points`` and ``bw`` are the belief's tensors.  Draws and densities on
+    another device use a copy of that belief there (:meth:`belief_on`)."""
 
     def __init__(self, manifold, points, bw=None):
+        from .beliefs import make_belief
         if manifold.point_dim != manifold.dof:
             raise ValueError("manikde measurement densities need a "
                              "coordinate manifold (point_dim == dof)")
         self.manifold = manifold
         if hasattr(points, "points"):          # already a Belief
-            points, bw = points.points.cpu().numpy(), points.bw.cpu().numpy()
-        pts = np.asarray(points, np.float32)
-        if pts.ndim == 1:
-            pts = pts[:, None]
-        self.points = pts
-        self.bw = None if bw is None else np.asarray(bw, np.float32)
-        self._on: dict = {}
+            self.belief = points
+        else:
+            pts = (points.to(torch.float32)
+                   if isinstance(points, torch.Tensor)
+                   else torch.as_tensor(np.asarray(points, np.float32)))
+            if pts.ndim == 1:
+                pts = pts[:, None]
+            self.belief = make_belief(
+                manifold, pts, bw=None if bw is None
+                else torch.as_tensor(host32(bw), device=pts.device))
+        self._on: dict = {str(self.belief.points.device): self.belief}
 
     @property
     def dim(self):
         return self.manifold.dof
 
-    def belief(self, device="cpu"):
-        """The KDE as a :class:`~incrementalinference_torch.beliefs.Belief`
-        on ``device``."""
-        from .beliefs import make_belief
-        key = str(device)
+    @property
+    def points(self) -> torch.Tensor:
+        return self.belief.points
+
+    @property
+    def bw(self) -> torch.Tensor:
+        return self.belief.bw
+
+    def belief_on(self, device):
+        """:attr:`belief` on ``device``: the same points and bandwidth,
+        copied there once."""
+        key = str(torch.device(device))
         if key not in self._on:
-            self._on[key] = make_belief(
-                self.manifold, torch.as_tensor(self.points, device=device),
-                bw=None if self.bw is None
-                else torch.as_tensor(self.bw, device=device))
+            b = self.belief
+            self._on[key] = type(b)(points=b.points.to(device),
+                                    bw=b.bw.to(device), ipc=b.ipc.to(device))
         return self._on[key]
 
     def sample(self, gen, n):
         from .beliefs import kde_sample
-        return kde_sample(self.manifold, self.belief(gen.device), gen, n)
+        return kde_sample(self.manifold, self.belief_on(gen.device), gen, n)
 
     def logpdf(self, x):
         from .beliefs import kde_logpdf
-        return kde_logpdf(self.manifold, self.belief(x.device), x)
+        return kde_logpdf(self.manifold, self.belief_on(x.device), x)
 
     def mean_cov(self):
         from .beliefs import mean_cov
-        mu, cov = mean_cov(self.manifold, self.belief().points)
-        return mu.numpy(), cov.numpy()
+        mu, cov = mean_cov(self.manifold, self.belief.points)
+        return mu.cpu().numpy(), cov.cpu().numpy()
 
 
 def manikde(vartype_or_manifold, points, bw=None) -> ManifoldKernelDensity:

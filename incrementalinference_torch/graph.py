@@ -9,6 +9,8 @@ adjacency, solve keys) is plain Python; beliefs are tensors on the graph's
 from __future__ import annotations
 
 import itertools
+import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -20,15 +22,21 @@ from .config import SolverParams, resolve_device
 from .manifolds import Circle, Euclidean, Manifold
 
 __all__ = ["VariableType", "Variable", "Factor", "FactorGraph", "initfg",
-           "ContinuousScalar", "ContinuousEuclid", "Position", "Circular"]
+           "ContinuousScalar", "ContinuousEuclid", "Position", "Circular",
+           "Position1", "Position2", "Position3", "Position4"]
 
 
 class VariableType:
-    """A named manifold (reference ``@defVariable`` products)."""
+    """A named manifold (reference ``@defVariable`` products).  Every
+    instance joins a weak registry, so workspace introspection
+    (``fgos.get_current_workspace_variables``) sees factory-made types."""
+
+    _REGISTRY: "weakref.WeakSet" = weakref.WeakSet()
 
     def __init__(self, name: str, manifold: Manifold):
         self.name = name
         self.manifold = manifold
+        VariableType._REGISTRY.add(self)
 
     def __repr__(self):
         return self.name
@@ -54,6 +62,12 @@ def Position(n: int) -> VariableType:
 ContinuousScalar = ContinuousEuclid(1)
 Circular = VariableType("Circular", Circle())
 
+# the first Position{N} instances, exported by name as in the reference
+Position1 = Position(1)
+Position2 = Position(2)
+Position3 = Position(3)
+Position4 = Position(4)
+
 
 @dataclass
 class Variable:
@@ -64,6 +78,10 @@ class Variable:
     N: int = 100
     tags: set = field(default_factory=set)
     solvable: int = 1
+    # creation time (seconds since the epoch) and attached blob entries
+    # (reference DFG getTimestamp and the addData! entries)
+    timestamp: float = 0.0
+    data: Dict[str, Any] = field(default_factory=dict)
     beliefs: Dict[str, Belief] = field(default_factory=dict)
     initialized: Dict[str, bool] = field(default_factory=dict)
     ppe: Dict[str, dict] = field(default_factory=dict)
@@ -101,7 +119,10 @@ class Factor:
     nullhypo: float = 0.0
     tags: set = field(default_factory=set)
     solvable: int = 1
+    timestamp: float = 0.0
     potential_used: bool = False
+    # what the model's ``preamble_cache`` hook built at add time
+    cache: Any = None
 
     @property
     def is_prior(self) -> bool:
@@ -153,7 +174,8 @@ class FactorGraph:
         if label in self.variables:
             raise ValueError(f"variable {label!r} already exists")
         v = Variable(label=label, vartype=vartype, N=N or self.params.N,
-                     tags=set(tags), solvable=solvable)
+                     tags=set(tags), solvable=solvable,
+                     timestamp=time.time())
         self.variables[label] = v
         self._var_factors[label] = []
         return v
@@ -183,10 +205,15 @@ class FactorGraph:
             raise ValueError(f"factor {label!r} already exists")
         f = Factor(label=label, variables=variables, model=model,
                    multihypo=multihypo, nullhypo=float(nullhypo),
-                   tags=set(tags), solvable=solvable)
+                   tags=set(tags), solvable=solvable, timestamp=time.time())
         self.factors[label] = f
         for vl in variables:
             self._var_factors[vl].append(label)
+        # reference preambleCache: a user model may build a one-time cache
+        # from the graph context, kept host-side on the factor
+        pc = getattr(model, "preamble_cache", None)
+        if callable(pc):
+            f.cache = pc(self, [self.variables[vl] for vl in variables], f)
         do_init = self.params.graphinit if graphinit is None else graphinit
         if do_init:
             from .graphinit import doautoinit
@@ -194,7 +221,39 @@ class FactorGraph:
                 doautoinit(self, vl)
         return f
 
+    def remove_factor(self, label: str) -> Factor:
+        """Delete a factor (reference DFG deleteFactor!)."""
+        f = self.factors.pop(label, None)
+        if f is None:
+            raise KeyError(f"unknown factor {label!r}")
+        for vl in f.variables:
+            if label in self._var_factors.get(vl, ()):
+                self._var_factors[vl].remove(label)
+        return f
+
+    def remove_variable(self, label: str, remove_factors: bool = True
+                        ) -> Variable:
+        """Delete a variable (reference DFG deleteVariable!) and, unless
+        ``remove_factors`` is False (then the delete refuses while factors
+        remain), its factors."""
+        if label not in self.variables:
+            raise KeyError(f"unknown variable {label!r}")
+        attached = list(self._var_factors.get(label, ()))
+        if attached and not remove_factors:
+            raise ValueError(
+                f"variable {label!r} still has factors {attached}")
+        for fl in attached:
+            self.remove_factor(fl)
+        del self._var_factors[label]
+        # graphinit.ensure_solvable's demotions are kept by label
+        getattr(self, "_auto_demoted", set()).discard(label)
+        return self.variables.pop(label)
+
     # -- queries -----------------------------------------------------------
+    def exists(self, label: str) -> bool:
+        """Reference DFG exists(fg, label): a variable or a factor."""
+        return label in self.variables or label in self.factors
+
     def ls(self, tags: Iterable[str] = ()) -> List[str]:
         tags = set(tags)
         return [v for v, var in self.variables.items()
@@ -213,6 +272,13 @@ class FactorGraph:
 
     def factors_of(self, var_label: str) -> List[str]:
         return list(self._var_factors[var_label])
+
+    def neighbors(self, label: str) -> List[str]:
+        """A variable's factors or a factor's variables (reference
+        getNeighbors)."""
+        if label in self.variables:
+            return self.factors_of(label)
+        return list(self.factors[label].variables)
 
     # -- beliefs -----------------------------------------------------------
     def get_belief(self, label: str, solve_key: str = "default") -> Belief:

@@ -19,7 +19,7 @@ from ..models.factors import MsgPrior, MsgRelativeLikelihood
 from ..tree.bayestree import CliqStatus
 
 __all__ = ["LikelihoodMessage", "JointMsg", "add_msg_factors",
-           "prep_msg_up", "prep_msg_down", "generate_msg_joint", "MSG_TAG"]
+           "delete_msg_factors", "prep_msg_up", "prep_msg_down", "generate_msg_joint", "MSG_TAG"]
 
 MSG_TAG = "__LIKELIHOODMESSAGE__"
 
@@ -97,6 +97,16 @@ def add_msg_factors(subfg, msg: LikelihoodMessage) -> List[str]:
             graphinit=False, tags=(MSG_TAG,))
         added.append(f.label)
     return added
+
+
+def delete_msg_factors(subfg, labels: Optional[List[str]] = None) -> None:
+    """Remove message factors, by default every one (reference
+    deleteMsgFactors!)."""
+    if labels is None:
+        labels = [fl for fl in subfg.lsf() if MSG_TAG in fl]
+    for fl in labels:
+        if fl in subfg.factors:
+            subfg.remove_factor(fl)
 
 
 def _subfg_has_priors(subfg) -> bool:

@@ -34,8 +34,8 @@ from ..graph import FactorGraph, Variable
 from ..graphinit import doautoinit
 from ..ops.graphops import (canonical_factors, conv_entry, ipc_of,
                             local_product_and_update)
-from ..tree.accessors import (find_factors_between_from,
-                              get_cliq_vars_with_frontal_neighbors)
+from ..fgos import find_factors_between_from
+from ..tree.accessors import get_cliq_vars_with_frontal_neighbors
 from ..tree.bayestree import BayesTree, Clique, CliqStatus
 from .messages import (LikelihoodMessage, add_msg_factors, prep_msg_down,
                        prep_msg_up)
@@ -64,6 +64,7 @@ def _copy_variable(v: Variable) -> Variable:
     """A subgraph's view of a variable: its own dicts, shared tensors."""
     return Variable(label=v.label, vartype=v.vartype, N=v.N,
                     tags=set(v.tags), solvable=v.solvable,
+                    timestamp=v.timestamp, data=v.data,
                     beliefs=dict(v.beliefs), initialized=dict(v.initialized),
                     ppe=dict(v.ppe), parametric_point=v.parametric_point,
                     parametric_cov=v.parametric_cov,

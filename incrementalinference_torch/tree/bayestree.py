@@ -150,6 +150,10 @@ class BayesTree:
     def num_cliques(self) -> int:
         return len(self.cliques)
 
+    def is_root(self, cid: int) -> bool:
+        """Reference isRoot(tree, CliqueId)."""
+        return self.cliques[cid].parent is None
+
     def delete_clique(self, cid: int) -> Clique:
         """Remove a clique; its children become roots and its frontals are
         unindexed (reference deleteClique!)."""

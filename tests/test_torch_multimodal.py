@@ -156,7 +156,7 @@ def test_distribution_matches_jax(name):
 def test_manikde_selects_the_jax_bandwidth():
     pts = rng(4).normal(0.0, 1.0, size=(100, 1)).astype(np.float32)
     bj = jl.manikde(jl.ContinuousScalar, pts).belief
-    bt = it.manikde(it.ContinuousScalar, pts).belief()
+    bt = it.manikde(it.ContinuousScalar, pts).belief
     np.testing.assert_allclose(bt.bw.numpy(), np.asarray(bj.bw), rtol=1e-5)
     np.testing.assert_array_equal(bt.points.numpy(), np.asarray(bj.points))
 

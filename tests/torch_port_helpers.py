@@ -42,6 +42,30 @@ def t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.float32))
 
 
+def interp_uniform(t: float, u: torch.Tensor, t0: float, dt: float):
+    """``jnp.interp(t, u[0], u[1])`` for a grid u[0] = t0 + dt·i, as the
+    port's ODE tests write it: ``t`` arrives as a Python float, so the cell
+    is found on the host and only the lerp of two grid values is a tensor
+    op (inside ``vmap(jacfwd)`` every op costs host time)."""
+    n = u.shape[1]
+    s = min(max((t - t0) / dt, 0.0), n - 1.0)
+    i = min(int(s), n - 2)
+    return torch.lerp(u[1, i], u[1, i + 1], s - i)
+
+
+def scaled(x: torch.Tensor, a: float) -> torch.Tensor:
+    """a·x as an alpha-add: under torch.func's forward mode a product with
+    a constant takes a Python decomposition (about a millisecond of host
+    time a call on a CPU); an alpha-add does not."""
+    return torch.add(torch.zeros_like(x), x, alpha=a)
+
+
+def _net(fn) -> object:
+    """The ``net`` entry of a JAX-package network function."""
+    return ("mlp" if type(fn).__name__ == "function"
+            else [list(layer) for layer in fn.spec])
+
+
 def _dist(z) -> dict:
     """A JAX-package distribution as convert.py's distribution dict."""
     from incrementalinference_torch.convert import _DIST_FIELDS
@@ -51,6 +75,20 @@ def _dist(z) -> dict:
         return {"type": name, "dof": z.manifold.dof,
                 "points": np.asarray(z.belief.points),
                 "bw": np.asarray(z.belief.bw)}
+    if name == "HeatmapGridDensity":
+        return {"type": name, "data": np.asarray(z.data),
+                "xs": np.asarray(z.xs), "ys": np.asarray(z.ys), "N": z.N}
+    if name == "LevelSetGridNormal":
+        return {"type": name, "data": np.asarray(z.data),
+                "xs": np.asarray(z.heatmap.xs),
+                "ys": np.asarray(z.heatmap.ys), "level": z.level,
+                "sigma": z.sigma}
+    if name == "FluxModelsDistribution":
+        return {"type": name, "net": _net(z.apply_fn),
+                "params": [[np.asarray(W), np.asarray(b)]
+                           for W, b in z.params],
+                "data": np.asarray(z.data), "out_dim": z.out_dim,
+                "shuffle": bool(z.shuffle)}
     return {"type": name,
             **{f: np.asarray(getattr(z, f)) for f in _DIST_FIELDS[name]}}
 
@@ -65,7 +103,8 @@ def _fields(model, skip=()) -> dict:
           "p0": lambda a: np.asarray(a, np.float32), "partial": list,
           "manifolds": lambda ms: [manifold_to(m) for m in ms],
           "p0s": lambda ps: [np.asarray(p, np.float32) for p in ps],
-          "cov": lambda a: np.asarray(a, np.float32)}
+          "cov": lambda a: np.asarray(a, np.float32),
+          "t0": float, "t1": float, "steps": int, "data": _array}
     return {k: to[k](getattr(model, k))
             for k in MODEL_REGISTRY[type(model).__name__][1]
             if k not in skip}
