@@ -56,6 +56,14 @@ Phases (any failure exits non-zero before the result line; none is caught):
    2); the n-ary decay-rate DERelative at N = 100; deepcopy_graph,
    remove_variable and a re-solve on the card, ppe_batched against ppe on
    the hexagon's poses, and the clique accessors over its tree;
+   Then persistence and diagnostics (phase_persistence): warmup; the
+   N = 50,000 two-variable graph solved, saved, loaded onto the card (every
+   belief float32 there and bit-equal to the saved one, the tree clique for
+   clique) and re-solved with the loaded tree as ``old_tree`` through the
+   kernel at the bars of phase 4; its saveDFG archive round trip and the
+   golden archive of tests/fixtures solved at its bars; skip_cliques,
+   timeout and delay_cliques, the history files and replay_clique_up on
+   LineStep(20) at N = 100;
 7. time the kernel, its plain version and one library route
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
    same three on the inputs the SE(2), SE(3) and heatmap (dof 2) solves
@@ -372,6 +380,18 @@ def _two_var_graph(it, N):
     return fg
 
 
+def _check_two_var(fg, what):
+    """The bars of benchmarks/pallas_e2e_solve.py: |mean - mu| < 0.2 and
+    0.4 < std < 1.5 for x0 (mu 0) and x1 (mu 10)."""
+    stats = {}
+    for v, mu in (("x0", 0.0), ("x1", 10.0)):
+        pts = fg.points(v)[:, 0]
+        stats[v] = (float(pts.mean()), float(pts.std()))
+        check(abs(stats[v][0] - mu) < 0.2, f"{what} {v}: {stats[v]}")
+        check(0.4 < stats[v][1] < 1.5, f"{what} {v}: {stats[v]}")
+    return stats
+
+
 def phase_large(it, K):
     from incrementalinference_torch.ops import product
 
@@ -390,12 +410,7 @@ def phase_large(it, K):
         launches.append(K.counts["launches"])
         check(K.counts["launches"] > 0,
               "the N=50k solve never launched the row_logsumexp kernel")
-        stats = {}
-        for v, mu in (("x0", 0.0), ("x1", 10.0)):
-            pts = fg.points(v)[:, 0]
-            stats[v] = (float(pts.mean()), float(pts.std()))
-            check(abs(stats[v][0] - mu) < 0.2, f"{v}: {stats[v]}")
-            check(0.4 < stats[v][1] < 1.5, f"{v}: {stats[v]}")
+        stats = _check_two_var(fg, f"N={N}")
     print(f"PASS N={N} solve_tree on CUDA through the kernel: cold "
           f"{walls[0]:.3f} s, warm {walls[1]:.3f} s; launches per solve "
           f"{launches}; posteriors (mean, std) {stats}", flush=True)
@@ -948,6 +963,146 @@ def phase_surfaces(it, K, hexagon, hex_tree, N=50_000):
           f"poses within {err:.2e} of ppe; hexagon tree depths {depths}, "
           f"calc_cliques_recycled {(total, marg, reused, both)}; "
           f"{time.time() - t_all:.3f} s", flush=True)
+
+
+def phase_persistence(it, K, N=50_000):
+    """Persistence and diagnostics on CUDA: warmup; the N = 50k two-variable
+    graph solved, saved (graph and tree), loaded onto the card (every
+    belief tensor float32 there, points, bw and ipc bit-equal to the saved
+    ones, the tree clique for clique) and re-solved with the loaded tree as
+    ``old_tree`` through the kernel (launch count grows, the bars of
+    phase_large); its saveDFG archive round trip onto the card (point
+    blocks equal) and the golden archive of tests/fixtures solved at the
+    bars of tests/test_dfg_import.py:58-76; fault injection on LineStep(20)
+    at N = 100 with record_cliques (a skipped clique left untouched, a
+    timeout that must raise and one that must not, the history files, and
+    a replayed up-solve from the captured child messages)."""
+    import tempfile
+
+    from incrementalinference_torch.canonical import generate_line_step
+
+    t_all = time.time()
+    t0 = time.time()
+    it.warmup(device="cuda")
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+
+    fg = _two_var_graph(it, N)
+    _, tree = _solve_timed(it, fg)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        gpath = it.save_graph(fg, os.path.join(tmp, "fg.json"))
+        tpath = it.save_tree(tree, os.path.join(tmp, "bt.json"))
+        t_save = time.time() - t0
+        nbytes = os.path.getsize(gpath)
+        t0 = time.time()
+        fg2 = it.load_graph(gpath, device="cuda")
+        tree2 = it.load_tree(tpath)
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+        n_tensors = 0
+        for v in fg.ls():
+            saved, loaded = fg.var(v).beliefs, fg2.var(v).beliefs
+            check(sorted(saved) == sorted(loaded), f"{v}: solve keys differ")
+            for key in saved:
+                for a, b in zip(saved[key], loaded[key]):
+                    check(b.device.type == "cuda"
+                          and b.dtype == torch.float32,
+                          f"loaded {v}/{key}: {b.dtype} on {b.device}")
+                    check(torch.equal(a, b), f"loaded {v}/{key}: not "
+                          f"bit-equal to the saved belief")
+                    n_tensors += 1
+        check(tree2.elimination_order == tree.elimination_order
+              and sorted(tree2.cliques) == sorted(tree.cliques)
+              and all(tree2.cliques[c].frontals == cl.frontals
+                      and tree2.cliques[c].separator == cl.separator
+                      for c, cl in tree.cliques.items()),
+              "the loaded tree differs from the saved one")
+
+        K.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tree3 = it.solve_tree(fg2, old_tree=tree2)
+        torch.cuda.synchronize()
+        t_resolve = time.time() - t0
+        launches = K.counts["launches"]
+        check(launches > 0, "the re-solve of the loaded graph never "
+              "launched the row_logsumexp kernel")
+        recycled = sum(c.is_recycled for c in tree3.cliques.values())
+        stats = _check_two_var(fg2, "re-solved")
+
+        t0 = time.time()
+        apath = it.save_dfg_archive(fg2, os.path.join(tmp, "g.tar.gz"))
+        fa = it.load_dfg_archive(apath, device="cuda")
+        torch.cuda.synchronize()
+        t_dfg = time.time() - t0
+        abytes = os.path.getsize(apath)
+        for v in fg2.ls():
+            check(fa.points(v).device.type == "cuda"
+                  and torch.equal(fa.points(v), fg2.points(v)),
+                  f"saveDFG round trip: {v}'s points differ")
+        fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "fixtures", "dfg_archive")
+        fx = it.load_dfg_archive(fixture, device="cuda")
+        it.solve_tree(fx)
+        p0 = fx.points("x0")[:, 0]
+        m0 = float(((p0 + 100).abs() < 20).float().mean()
+                   + (p0.abs() < 20).float().mean())
+        l1 = fx.points("l1").mean(0)
+        th = float(((fx.points("theta")[:, 0] - 3.0).abs() < 0.5)
+                   .float().mean())
+        check(m0 > 0.8 and float(((p0 - 300).abs() < 20).float().mean()) < 0.1
+              and abs(float(l1[0]) - 3.2) < 0.5
+              and abs(float(l1[1]) + 2.0) < 0.5 and th > 0.9,
+              f"golden archive solve: x0 mass {m0}, l1 {l1.tolist()}, "
+              f"theta {th}")
+
+        fl = generate_line_step(20, graphinit=True, device="cuda")
+        fl.params.record_cliques = True
+        fl.params.logpath = os.path.join(tmp, "logs")
+        tree0 = it.solve_tree(fl)
+        some = list(tree0.cliques)[-1]
+        before = {v: fl.points(v).clone()
+                  for v in tree0.clique(some).frontals}
+        t = it.solve_tree(fl, skip_cliques=[some])
+        check(all(torch.equal(fl.points(v), p) for v, p in before.items())
+              and [e[1] for e in t.traces[some].events] == ["skip"]
+              and t.clique(some).status != it.CliqStatus.ERROR_STATUS,
+              "skip_cliques: the skipped clique was touched")
+        leafish = tree0.levels()[-1][0]
+        raised = None
+        try:
+            it.solve_tree(fl, timeout=0.4, delay_cliques={leafish: 1.0})
+        except RuntimeError as e:
+            raised = e
+        check(raised is not None
+              and isinstance(raised.__cause__, TimeoutError),
+              f"timeout=0.4 with a 1 s delay did not time out: {raised!r}")
+        t = it.solve_tree(fl, timeout=120.0)
+        check(all(c.status == it.CliqStatus.DOWNSOLVED
+                  for c in t.cliques.values()), "timeout=120 interfered")
+        logs = fl.params.logpath
+        n_logs = len(os.listdir(os.path.join(logs, "logs")))
+        check(any(f.startswith("HistoryAll_") for f in os.listdir(logs))
+              and n_logs == t.num_cliques(), "history files missing")
+        target = next(c for c in t.cliques.values()
+                      if c.children and c.separator)
+        msg = it.debugging.replay_clique_up(fl, t, target.cid, t.traces)
+        check(bool(msg.beliefs) and all(
+            b.points.device.type == "cuda" and bool(b.points.isfinite().all())
+            for b in msg.beliefs.values()),
+            "replay_clique_up: a non-finite or off-card message")
+    print(f"PASS persistence on CUDA: warmup {t_warm:.3f} s; N={N} graph "
+          f"saved in {t_save:.3f} s ({nbytes} bytes of JSON), loaded onto "
+          f"the card in {t_load:.3f} s, {n_tensors} belief tensors "
+          f"bit-equal; re-solve with the loaded tree {t_resolve:.3f} s, "
+          f"{recycled} of {tree3.num_cliques()} cliques recycled, kernel "
+          f"launches {launches}, posteriors (mean, std) {stats}; saveDFG "
+          f"round trip {t_dfg:.3f} s ({abytes} bytes); golden archive "
+          f"solved (x0 mass {m0:.3f}); skip, timeout, {n_logs} clique logs "
+          f"and a replay of clique {target.cid} on LineStep(20); "
+          f"{time.time() - t_all:.3f} s", flush=True)
+    return launches
 
 
 def timing_inputs(K, n, dof, dev):
@@ -1565,6 +1720,8 @@ def main() -> int:
     del hex_tree
     print(f"# slices 7 and 9a phases: {time.time() - t_new:.1f} s",
           flush=True)
+    by_path["persistence: loaded N=50000 graph re-solved with the loaded "
+            "tree"] = phase_persistence(it, K)
     by_path["parametric LineStep(1000), dense and cg"] = \
         phase_param_linestep(it, K, dev)
     by_path["parametric SE(3) chain of 60, autoinit and solves"] = \

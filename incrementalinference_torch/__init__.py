@@ -4,16 +4,20 @@ PyTorch.
 The PyTorch and CUDA port of :mod:`incrementalinference.jl_tpu` (which stays
 the reference).  Graphs live on a device, CUDA unless the caller passes
 ``device="cpu"``; the pair-product row-logsumexp runs as a hand-written
-CUDA kernel (ops/kernels/csrc/row_lse.cu).
+CUDA kernel (ops/kernels/csrc/row_lse.cu).  Graphs and trees save and load
+in the JAX package's file formats (``serialization``).
 """
 
 from .api import (approx_cliq_marginal_up, fifo_freeze, set_ppe,
                   solve_cliq_down, solve_cliq_up,
-                  solve_cliq_with_state_machine, solve_graph, solve_tree)
+                  solve_cliq_with_state_machine, solve_graph, solve_tree,
+                  warmup)
 from . import manifolds
 from .beliefs import (Belief, kde_logpdf, kde_sample, make_belief, mean_cov,
                       ppe)
 from . import canonical
+from . import debugging
+from . import serialization
 from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
                         generate_euclid_distance, generate_hexagonal,
                         generate_kaess, generate_line_step,
@@ -48,6 +52,8 @@ from .parallel.scheduler import CliqueTrace
 from .parametric import (autoinit_parametric, init_parametric_from,
                          solve_conditionals_parametric,
                          solve_graph_parametric, solve_tree_parametric)
+from .serialization import (load_dfg_archive, load_graph, load_tree,
+                            save_dfg_archive, save_graph, save_tree)
 from .tether import (accumulate_factor_means, rebase_factor_variable,
                      solve_factor_parametric)
 from .tree import (BayesTree, CliqStatus, build_tree, build_tree_reset,
@@ -57,6 +63,30 @@ from .utils import (compare_all_special, compare_beliefs, compare_factors,
                     select_factor_type)
 from . import fgos
 from .fgos import *  # noqa: F401,F403 — graph accessor surface
+from . import compat
+from .compat import (AbstractBayesTree, AbstractFactor,
+                     AbstractManifoldMinimize, AbstractPrior,
+                     AbstractRelative, AbstractRelativeMinimize, BeliefArray,
+                     CalcFactor, CliqStateMachineContainer,
+                     CommonConvWrapper, DFGFactorSummary, DFGVariableSummary,
+                     GraphsDFG, InferenceVariable, LocalDFG,
+                     PackedAliasingScalarSampler, PackedBayesTreeNodeData,
+                     PackedCategorical, PackedDiagNormal,
+                     PackedFluxModelsDistribution, PackedFullNormal,
+                     PackedFunctionNodeData, PackedGenericMarginal,
+                     PackedHeatmapGridDensity, PackedLevelSetGridNormal,
+                     PackedManifoldKernelDensity, PackedMixture,
+                     PackedMsgPrior, PackedNormal, PackedPartialPrior,
+                     PackedPrior, PackedRayleigh, PackedSamplableBelief,
+                     PackedUniform, PackedZeroMeanDiagNormal,
+                     PackedZeroMeanFullNormal, TreeBelief, diagm,
+                     factor_summary, get_solver_params, variable_summary)
+from . import datastore
+from .datastore import (BlobEntry, FolderStore, InMemoryBlobStore, add_blob,
+                        add_blob_store, add_data, delete_data,
+                        fetch_data_json, get_blob, get_blob_store, get_data,
+                        list_blob_entries, list_blob_stores,
+                        list_data_entries)
 from .tree import accessors as tree_accessors
 from .tree.accessors import *  # noqa: F401,F403 — clique accessor surface
 
@@ -97,4 +127,7 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "get_elimination_order", "compare_all_special",
            "compare_beliefs", "compare_factors", "compare_graphs",
            "compare_variables", "incr_suffix", "fgos", "tree_accessors",
-           *fgos.__all__, *tree_accessors.__all__]
+           "warmup", "debugging", "serialization", "load_dfg_archive",
+           "load_graph", "load_tree", "save_dfg_archive", "save_graph",
+           "save_tree", "compat", *compat.__all__, "datastore",
+           *datastore.__all__, *fgos.__all__, *tree_accessors.__all__]

@@ -8,22 +8,26 @@ tree build, recycling cliques of the previous solve's tree → up/down sweeps.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
 from .beliefs import Belief, ppe as calc_ppe
+from .canonical import generate_kaess
+from .config import resolve_device
 from .graph import FactorGraph
 from .graphinit import ensure_solvable, init_all
 from .parallel.messages import (LikelihoodMessage, prep_msg_down,
                                 prep_msg_up)
 from .parallel.scheduler import (down_solve_clique, solve_tree_sweeps,
                                  up_solve_clique)
+from .parametric import solve_graph_parametric
 from .parametric.cliques import solve_tree_parametric
 from .tree.bayestree import BayesTree, CliqStatus, build_tree_reset
 
 __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "solve_cliq_with_state_machine", "approx_cliq_marginal_up",
-           "fifo_freeze", "set_ppe"]
+           "fifo_freeze", "set_ppe", "warmup"]
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +63,9 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                up: Optional[bool] = None, down: Optional[bool] = None,
                order: Optional[Sequence[str]] = None,
                algorithm: str = "default",
+               skip_cliques: Sequence[int] = (),
+               delay_cliques: Optional[Dict[int, float]] = None,
+               timeout: Optional[float] = None,
                verbose: bool = False) -> BayesTree:
     """Nonparametric MM-iSAM solve over the Bayes tree (reference
     solveTree!).  Runs on the graph's device.  Returns the tree: pass it
@@ -67,7 +74,15 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
 
     ``algorithm="parametric"`` runs the clique-wise Gaussian solve instead
     (reference solveTree!(...; algorithm=:parametric), SolverAPI.jl:423;
-    parametric/cliques.py)."""
+    parametric/cliques.py).
+
+    Fault injection (reference skipcliqids, delaycliqs, timeout):
+    ``skip_cliques`` are left untouched, ``delay_cliques`` ({cid: seconds})
+    sleep before their up-solve, and once ``timeout`` seconds have passed
+    the cliques not yet solved are marked ERROR_STATUS and the solve raises
+    after the sweep.  With ``record_cliques`` the traces are also written
+    under ``params.logpath``: ``HistoryAll_<solve>.txt`` and, appended
+    solve after solve, ``logs/cliq<cid>/log.txt``."""
     if algorithm == "parametric":
         return solve_tree_parametric(fg, old_tree=old_tree, order=order)
     if algorithm != "default":
@@ -91,7 +106,11 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
     tree.traces = solve_tree_sweeps(
         fg, tree, solve_key=solve_key,
         up=params.upsolve if up is None else up,
-        down=params.downsolve if down is None else down)
+        down=params.downsolve if down is None else down,
+        skip_cliques=skip_cliques, delay_cliques=delay_cliques,
+        timeout=timeout)
+    if params.record_cliques and tree.traces:
+        _write_history(params.logpath, fg.solve_count, tree.traces)
     for v in fg.variables.values():
         if v.solvable and v.is_initialized(solve_key):
             v.solved_count[solve_key] = v.get_solved_count(solve_key) + 1
@@ -99,6 +118,28 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
     if verbose:
         logger.info("solve_tree done in %.3fs", time.time() - t0)
     return tree
+
+
+def _write_history(logpath: str, solve: int, traces: dict) -> None:
+    """The solve-wide trace dump (reference HistoryCSMAll.txt) and one
+    appended log per clique (reference logpath/logs/cliqN/log.txt).  A
+    directory that cannot be written costs a warning, not the solve."""
+    try:
+        os.makedirs(logpath, exist_ok=True)
+        with open(os.path.join(logpath, f"HistoryAll_{solve}.txt"),
+                  "w") as fp:
+            for cid, tr in sorted(traces.items()):
+                for ts, step, detail in tr.events:
+                    fp.write(f"{ts:.3f}\tcliq{cid}\t{step}\t{detail}\n")
+        for cid, tr in sorted(traces.items()):
+            cliqdir = os.path.join(logpath, "logs", f"cliq{cid}")
+            os.makedirs(cliqdir, exist_ok=True)
+            with open(os.path.join(cliqdir, "log.txt"), "a") as fp:
+                fp.write(f"# solve {solve}\n")
+                for ts, step, detail in tr.events:
+                    fp.write(f"{ts:.3f}\t{step}\t{detail}\n")
+    except OSError:
+        logger.warning("could not write the trace dump to %s", logpath)
 
 
 def solve_graph(fg: FactorGraph, **kw) -> BayesTree:
@@ -164,3 +205,18 @@ def solve_cliq_down(fg: FactorGraph, tree: BayesTree, frontal: str,
                                  CliqStatus.DOWNSOLVED, solve_key)
     return down_solve_clique(fg, tree, cl, down_msg, solve_key,
                              child_msgs=child_msgs)
+
+
+def warmup(parametric: bool = True, device=None) -> None:
+    """Make the first real solve fast: on CUDA, build the row-logsumexp
+    kernel; then solve the Kaess example, and with ``parametric`` its
+    parametric form (the reference's precompile workload,
+    src/IncrementalInference.jl:242-249)."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from .ops.kernels import row_lse
+        row_lse.build()
+    solve_tree(generate_kaess(graphinit=True, device=device))
+    if parametric:
+        solve_graph_parametric(generate_kaess(graphinit=False,
+                                              device=device))

@@ -10,6 +10,8 @@ implement yet are kept for parity and documented as such.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any
 
 import torch
@@ -65,9 +67,12 @@ class SolverParams:
     # Upsolve only / downsolve only switches.
     upsolve: bool = True
     downsolve: bool = True
-    # Log path for per-clique history files (reference logpath).  Kept for
-    # parity: the port keeps traces in memory (tree.traces) and writes none.
-    logpath: str = "/tmp/iitpu"
+    # Where a solve with ``record_cliques`` writes its history files
+    # (reference logpath): HistoryAll_<solve>.txt and logs/cliq<cid>/log.txt.
+    # The JAX package's "/tmp/iitpu", under the temporary directory the
+    # environment names.
+    logpath: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "iitpu"))
     # Seed of the graph's host-side key stream (see keys.py).
     seed: int = 42
     # Record per-clique scheduler traces (tree.traces after a solve).

@@ -208,7 +208,7 @@ def _dist_to(z) -> dict:
 def _model_from(f: dict, functions: dict):
     if f["type"] not in MODEL_REGISTRY:
         raise ValueError(f"unsupported factor type {f['type']!r}")
-    cls, _ = MODEL_REGISTRY[f["type"]]
+    cls = MODEL_REGISTRY[f["type"]][0]
     if cls is Mixture:
         components = [_dist_from(c) for c in f["components"]]
         mechanics = MODEL_REGISTRY[f["mechanics"]][0]
@@ -250,7 +250,8 @@ _FIELD_TO = {"Z": _dist_to, "manifold": manifold_to,
 
 
 def _carried(type_name: str):
-    fields = MODEL_REGISTRY[type_name][1]
+    _, children, aux = MODEL_REGISTRY[type_name]
+    fields = children + aux
     if any(k not in _FIELD_FROM for k in fields):
         raise ValueError(f"factor type {type_name!r} is not carried as "
                          f"arrays (fields {fields})")

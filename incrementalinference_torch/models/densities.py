@@ -134,4 +134,4 @@ class PartialPriorPassThrough(PriorModel):
         return self.Z.mean_cov()
 
 
-register_factor_model(PartialPriorPassThrough, ("Z", "partial"))
+register_factor_model(PartialPriorPassThrough, ("Z",), ("partial",))

@@ -477,14 +477,21 @@ class GaussianJoint(FactorModel):
         return torch.zeros((self.zdim,), device=self.cov.device), self.cov
 
 
-#: factor type name -> (class, parameter fields): the serialization and
-#: convert.py look-up, as the JAX package's MODEL_REGISTRY
+#: factor type name -> (class, children, aux): the parameter fields of each
+#: factor type, read by the packed serialization (serialization/packed.py)
+#: and by convert.py, as the JAX package's MODEL_REGISTRY.  There,
+#: ``children`` are traced array fields and ``aux`` static structure (a
+#: manifold, dims); the port keeps the same split so that a custom model
+#: packs to the same document in both packages.
 MODEL_REGISTRY: dict = {}
 
 
-def register_factor_model(cls, children: tuple = ("Z",)):
-    """Register a user-defined :class:`FactorModel` subclass by name."""
-    MODEL_REGISTRY[cls.__name__] = (cls, tuple(children))
+def register_factor_model(cls, children: tuple = ("Z",), aux: tuple = ()):
+    """Register a user-defined :class:`FactorModel` subclass by name, so
+    that it round-trips through ``save_graph``/``load_graph``: its
+    ``children`` (arrays, distributions, beliefs) and ``aux`` (static
+    structure) fields are packed by name."""
+    MODEL_REGISTRY[cls.__name__] = (cls, tuple(children), tuple(aux))
     return cls
 
 
@@ -494,11 +501,11 @@ register_factor_model(EuclidDistance, ("Z",))
 register_factor_model(PriorCircular, ("Z",))
 register_factor_model(CircularCircular, ("Z",))
 register_factor_model(Mixture, ("mechanics", "components", "diversity"))
-register_factor_model(PartialPrior, ("Z", "partial"))
-register_factor_model(MsgPrior, ("belief", "ipc"))
-register_factor_model(MetaPrior, ())
+register_factor_model(PartialPrior, ("Z",), ("partial",))
+register_factor_model(MsgPrior, ("belief", "ipc"), ("manifold",))
+register_factor_model(MetaPrior, (), ("data",))
 register_factor_model(GenericMarginal, ())
-register_factor_model(ManifoldFactor, ("manifold", "Z"))
-register_factor_model(ManifoldPrior, ("manifold", "p0", "Z"))
-register_factor_model(MsgRelativeLikelihood, ("belief", "manifold"))
-register_factor_model(GaussianJoint, ("manifolds", "p0s", "cov"))
+register_factor_model(ManifoldFactor, ("Z",), ("manifold",))
+register_factor_model(ManifoldPrior, ("p0", "Z"), ("manifold",))
+register_factor_model(MsgRelativeLikelihood, ("belief",), ("manifold",))
+register_factor_model(GaussianJoint, ("p0s", "cov"), ("manifolds",))

@@ -14,10 +14,14 @@ Incremental solves: a clique recycled from the previous tree
 graph's beliefs instead of solving, and the wildfire gate
 (``SolverParams.wildfire_tol``) lets a recycled clique skip its down-solve
 when its incoming down message has not moved.  ``record_cliques`` keeps a
-:class:`CliqueTrace` per clique.
+:class:`CliqueTrace` per clique, with the inputs that replay its up-solve
+(``debugging.replay_clique_up``).  Fault injection (the reference's
+solveTree! skipcliqids/delaycliqs and its timeout): skipped cliques are
+left untouched, delayed ones sleep before their up-solve, and an expired
+deadline marks every clique not yet solved ERROR_STATUS.
 
-Not ported yet: batched same-level solves, chain segments, fault injection
-and history files, multi-device placement.
+Not ported yet (slice 8): batched same-level solves, chain segments,
+multi-device placement.
 """
 
 from __future__ import annotations
@@ -51,10 +55,17 @@ logger = logging.getLogger(__name__)
 @dataclass
 class CliqueTrace:
     """Per-clique record of the steps a solve took (the reference's CSM
-    history): ``events`` are (time, step, detail)."""
+    history): ``events`` are (time, step, detail).  With
+    ``record_cliques`` the sweep also keeps the up-solve's child messages,
+    the incoming down message and the clique subgraph (its tensors shared,
+    not copied), for replay (reference repeatCSMStep!,
+    getCliqSubgraphFromHistory)."""
 
     cid: int
     events: List[Tuple[float, str, str]] = field(default_factory=list)
+    child_msgs: Optional[List[LikelihoodMessage]] = None
+    down_msg: Optional[LikelihoodMessage] = None
+    subfg: Optional[FactorGraph] = None
 
     def log(self, step: str, detail: str = "") -> None:
         self.events.append((time.time(), step, detail))
@@ -362,6 +373,8 @@ def up_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
         return msg
 
     sub = build_clique_subgraph(fg, clique)
+    if fg.params.record_cliques:
+        t.subfg = sub
     t.log("build_subgraph", f"{len(sub.variables)} vars, "
                             f"{len(sub.factors)} factors")
     for msg in child_msgs:
@@ -492,19 +505,41 @@ def _resolve_wildfire_tol(params, tree: BayesTree) -> Tuple[float, bool]:
 
 def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                       solve_key: str = "default", up: bool = True,
-                      down: bool = True) -> Dict[int, CliqueTrace]:
+                      down: bool = True, skip_cliques: Sequence[int] = (),
+                      delay_cliques: Optional[Dict[int, float]] = None,
+                      timeout: Optional[float] = None
+                      ) -> Dict[int, CliqueTrace]:
     """Up sweep (deepest level first), then down sweeps with the tree-init
     fixed point.  A clique whose solve raises is marked ERROR_STATUS, its
     error message floods the rest of the schedule, and the first error
     re-raises after the sweeps.  Returns the per-clique traces (empty
-    unless ``params.record_cliques``)."""
+    unless ``params.record_cliques``).
+
+    Fault injection (reference solveTree! skipcliqids, delaycliqs and
+    timeout): ``skip_cliques`` are logged and left untouched;
+    ``delay_cliques`` maps a clique to seconds slept before its up-solve;
+    ``timeout`` is a wall-clock budget in seconds, checked between clique
+    solves: once it has expired, each clique reached is marked
+    ERROR_STATUS, as a failed one is."""
     traces: Dict[int, CliqueTrace] = {}
     levels = tree.levels()
     up_msgs: Dict[int, LikelihoodMessage] = {}
     errors: List[Tuple[int, Exception]] = []
+    skip_set = set(skip_cliques)
+    delay_cliques = delay_cliques or {}
+    deadline = time.time() + timeout if timeout else None
+    record = fg.params.record_cliques
+
+    def timed_out(cl: Clique) -> bool:
+        if deadline is None or time.time() <= deadline:
+            return False
+        cl.status = CliqStatus.ERROR_STATUS
+        errors.append((cl.cid, TimeoutError(
+            f"solve timeout ({timeout}s) before clique {cl.cid}")))
+        return True
 
     def trace_for(cid: int) -> CliqueTrace:
-        if fg.params.record_cliques:
+        if record:
             return traces.setdefault(cid, CliqueTrace(cid))
         return CliqueTrace(cid)
 
@@ -513,27 +548,44 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
         tr.log("error", str(e))
         errors.append((cl.cid, e))
 
+    def error_msg(cid: int) -> LikelihoodMessage:
+        return LikelihoodMessage(sender=cid, status=CliqStatus.ERROR_STATUS,
+                                 direction="up")
+
     def run_up(only: Optional[set] = None) -> None:
         for level in reversed(levels):
             for cid in level:
-                if only is not None and cid not in only:
+                if only is not None and (cid not in only
+                                         or cid in skip_set):
                     continue
                 cl = tree.clique(cid)
                 if only is not None and cl.status == CliqStatus.ERROR_STATUS:
+                    continue
+                if timed_out(cl):
+                    if only is None:
+                        up_msgs[cid] = error_msg(cid)
                     continue
                 child_msgs = [up_msgs[ch] for ch in cl.children
                               if ch in up_msgs]
                 tr = trace_for(cid)
                 if only is not None:
                     tr.log("re_up", "tree-init fixed point")
+                else:
+                    if record:
+                        tr.child_msgs = list(child_msgs)
+                    if cid in skip_set:
+                        tr.log("skip", "skip_cliques fault injection")
+                        up_msgs[cid] = LikelihoodMessage(
+                            sender=cid, status=cl.status, direction="up")
+                        continue
+                    if cid in delay_cliques:
+                        time.sleep(delay_cliques[cid])
                 try:
                     up_msgs[cid] = up_solve_clique(fg, tree, cl, child_msgs,
                                                    solve_key, trace=tr)
                 except Exception as e:          # noqa: BLE001
                     failed(cl, tr, e)
-                    up_msgs[cid] = LikelihoodMessage(
-                        sender=cid, status=CliqStatus.ERROR_STATUS,
-                        direction="up")
+                    up_msgs[cid] = error_msg(cid)
 
     def run_down() -> set:
         down_msgs: Dict[int, LikelihoodMessage] = {}
@@ -550,9 +602,12 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
         for level in levels:
             for cid in level:
                 cl = tree.clique(cid)
-                if cl.status == CliqStatus.ERROR_STATUS:
-                    continue
                 tr = trace_for(cid)
+                if record:
+                    tr.down_msg = down_msgs.get(cid)
+                if cid in skip_set or cl.status == CliqStatus.ERROR_STATUS \
+                        or timed_out(cl):
+                    continue
                 incoming = down_msgs.get(cid)
                 summary = (_msg_summary(incoming)
                            if record_summaries and incoming is not None

@@ -82,7 +82,7 @@ def _residual_params(model, device) -> tuple:
         return model.residual_params(device)
     entry = MODEL_REGISTRY.get(type(model).__name__)
     if entry is None or entry[0] is not type(model) \
-            or not set(entry[1]) <= _NOT_READ_BY_RESIDUAL:
+            or not set(entry[1] + entry[2]) <= _NOT_READ_BY_RESIDUAL:
         raise NotImplementedError(
             f"the parametric solver cannot stack {type(model).__name__}: "
             f"register it with fields among {sorted(_NOT_READ_BY_RESIDUAL)}")

@@ -105,8 +105,8 @@ def _fields(model, skip=()) -> dict:
           "p0s": lambda ps: [np.asarray(p, np.float32) for p in ps],
           "cov": lambda a: np.asarray(a, np.float32),
           "t0": float, "t1": float, "steps": int, "data": _array}
-    return {k: to[k](getattr(model, k))
-            for k in MODEL_REGISTRY[type(model).__name__][1]
+    _, children, aux = MODEL_REGISTRY[type(model).__name__]
+    return {k: to[k](getattr(model, k)) for k in children + aux
             if k not in skip}
 
 
