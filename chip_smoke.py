@@ -64,6 +64,24 @@ Phases (any failure exits non-zero before the result line; none is caught):
    golden archive of tests/fixtures solved at its bars; skip_cliques,
    timeout and delay_cliques, the history files and replay_clique_up on
    LineStep(20) at N = 100;
+   Then the batched level and distribution (phase_batched, budget 90 s):
+   the kernel's batched launch (8 members in one launch, the member from
+   blockIdx.z) at 50k x 50k, dof 1 and dof 3, against its plain version
+   looped over the members (rel err <= 1e-5) and against 8 single launches
+   (<= 1e-6), timed against those 8 launches, the library route looped
+   over the members and 8 x the bound; a forest of eight copies of the
+   two-variable graph at N = 50,000 (one level of 8 cliques: the default
+   batch_cliques="auto" batches it) solved cold and warm batched and once
+   with batch_cliques=False, every branch at phase 4's bars, held to 54
+   launches of 96 problems batched (the up stages one launch for all 8)
+   and 96 of 96 per clique, with the peak memory;
+   bench.py's 32-branch forest at N = 100 batched and per clique (walls)
+   and profiled batched; fourdoor at N = 100 with batch_cliques=True;
+   LineStep(20) with fuse_sweep=True (a chain segment engaged); a mesh of
+   the one card (make_mesh()) and Mesh([cuda:0] * 4) under "particles",
+   "cliques" and "auto" and for the parametric tree solve, at the bars of
+   tests/test_multichip*.py; dryrun_multichip(1), entry() and the Kaess
+   solve with precompile=True;
 7. time the kernel, its plain version and one library route
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
    same three on the inputs the SE(2), SE(3) and heatmap (dof 2) solves
@@ -96,7 +114,8 @@ Phases (any failure exits non-zero before the result line; none is caught):
    and the ten host operators with the most time.
 
 The last three lines are the card's name and power limit (nvidia-smi), a
-JSON object of per-kernel numbers, and
+JSON object of per-kernel numbers (with the batched launch's under
+"batched"), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -617,6 +636,13 @@ def _two_pose_graph(it, M, name, step, sigma, N):
     return fg, {"x0": ident.cuda(), "x1": x1.cuda()}
 
 
+def _one_member(*ts):
+    """The product hands the wrapper a leading member axis; a solve of one
+    clique hands a batch of one, recorded without that axis (a larger
+    batch keeps it and fails the shape checks that read this)."""
+    return [t[0] if t.dim() == 3 and t.shape[0] == 1 else t for t in ts]
+
+
 def phase_manifold_large(it, K, M, name, step, sigma, N):
     """The two-pose graph at a size where every product is a large pair
     product at dof 3 (SE(2)) or 6 (SE(3)).  Returns (walls, launches of the
@@ -629,7 +655,7 @@ def phase_manifold_large(it, K, M, name, step, sigma, N):
     wrapper = product.pair_row_logsumexp
 
     def recording(muA, precA, muB, precB):
-        handed[:] = [muA, precA, muB, precB]
+        handed[:] = _one_member(muA, precA, muB, precB)
         return wrapper(muA, precA, muB, precB)
 
     walls, launches = [], []
@@ -879,7 +905,7 @@ def phase_heatmap(it, K, N=50_000):
     handed, wrapper = [], product.pair_row_logsumexp
 
     def recording(muA, precA, muB, precB):
-        handed[:] = [muA, precA, muB, precB]
+        handed[:] = _one_member(muA, precA, muB, precB)
         return wrapper(muA, precA, muB, precB)
 
     K.reset_counts()
@@ -1105,6 +1131,326 @@ def phase_persistence(it, K, N=50_000):
     return launches
 
 
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _batched_inputs(K, B, n, dof, dev, seed):
+    """Row terms of B members of one shape, each member its own random
+    particles (bandwidth ~ 0.3, as timing_inputs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    muA = torch.randn((B, n, dof), generator=gen, device=dev)
+    muB = torch.randn((B, n, dof), generator=gen, device=dev) + 0.1 * \
+        torch.arange(B, device=dev, dtype=torch.float32)[:, None, None]
+    prec = torch.full((B, n, dof), 11.0, device=dev)
+    a2, iva, ivm = K.pair_row_terms(muA, prec, muB, prec)
+    return a2.contiguous(), iva.contiguous(), ivm.contiguous(), \
+        muB.contiguous()
+
+
+def phase_batched_kernel(K, dev, B=8, n=50_000):
+    """The kernel's batched launch (one launch for B members, the member
+    from blockIdx.z) at the batched level's shape: against its plain
+    version looped over the members (bar 1e-5 by rel_err) and against B
+    single launches (bar 1e-6), timed against B single launches, the
+    library route looped over the members and the bound of B problems.
+    Returns the entries (dof 1 and 3) for the kernels line."""
+    out = []
+    for dof in (1, 3):
+        a2, iva, ivm, muB = _batched_inputs(K, B, n, dof, dev, seed=dof)
+        before = dict(K.counts)
+        got = K.row_logsumexp(a2, iva, ivm, muB)
+        _sync(dev)
+        check(K.counts["launches"] - before["launches"] == 1
+              and K.counts["problems"] - before["problems"] == B,
+              f"batched call at dof {dof}: {before} -> {K.counts}")
+        plain = torch.stack([K.row_logsumexp_plain(a2[b], iva[b], ivm[b],
+                                                   muB[b])
+                             for b in range(B)])
+        singles = torch.stack([K.row_logsumexp(a2[b], iva[b], ivm[b],
+                                               muB[b]) for b in range(B)])
+        check(bool(torch.isfinite(got).all()), "batched: not finite")
+        err_plain, err_single = rel_err(got, plain), rel_err(got, singles)
+        max_abs = float((got - plain).abs().max())
+        check(err_plain <= _TOL, f"batched dof {dof} vs plain {err_plain}")
+        check(err_single <= 1e-6,
+              f"batched dof {dof} vs {B} single launches {err_single}")
+        del plain, singles
+        k_ms = cuda_ms(lambda: K.row_logsumexp(a2, iva, ivm, muB), reps=10)
+        s_ms = cuda_ms(lambda: [K.row_logsumexp(a2[b], iva[b], ivm[b],
+                                                muB[b]) for b in range(B)],
+                       reps=5)
+        p_ms = cuda_ms(lambda: [K.row_logsumexp_plain(
+            a2[b], iva[b], ivm[b], muB[b]) for b in range(B)], reps=2,
+            warmup=1)
+        # the library route has no member axis that fits in memory (B
+        # (Na, Nb) matrices): looped over the members, as the plain one
+        lib = torch.stack([library_row_logsumexp(a2[b], iva[b], ivm[b],
+                                                 muB[b]) for b in range(B)])
+        err_lib = rel_err(lib, got)
+        check(err_lib <= _TOL, f"batched dof {dof}: library route "
+                               f"disagrees {err_lib}")
+        del lib
+        l_ms = cuda_ms(lambda: [library_row_logsumexp(
+            a2[b], iva[b], ivm[b], muB[b]) for b in range(B)], reps=2,
+            warmup=1)
+        torch.cuda.empty_cache()
+        one, t_bytes, t_flops, t_exp = bound_ms(n, dof)
+        print(f"PASS row_logsumexp batched, {B} members of {n} x {n} dof "
+              f"{dof}, one launch: {k_ms:.4f} ms; {B} single launches "
+              f"{s_ms:.4f} ms; plain (looped) {p_ms:.4f} ms; library "
+              f"(looped) {l_ms:.4f} ms; bound {B * one:.4f} ms ({B} x "
+              f"{one:.4f}); rel err vs plain {err_plain:.3e}, vs single "
+              f"launches {err_single:.3e}", flush=True)
+        out.append({"members": B, "n": n, "dof": dof,
+                    "problems_per_launch": B, "max_abs_err": max_abs,
+                    "rel_err_vs_single_launches": err_single, "ms": k_ms,
+                    "single_launches_ms": s_ms, "plain_ms": p_ms,
+                    "bound_ms": B * one,
+                    "bound_by": "bytes" if t_bytes >= max(t_flops, t_exp)
+                    else "operations", "library_ms": l_ms})
+        del a2, iva, ivm, muB
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wide_two_var(it, N, dev, branches=8, **params):
+    """Eight copies of _two_var_graph side by side, branch b offset by
+    100 b: one level of eight isomorphic cliques."""
+    fg = it.initfg(it.SolverParams(N=N, **params), device=dev)
+    for b in range(branches):
+        o = 100.0 * b
+        fg.add_variable(f"b{b}x0", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0"], it.Prior(it.Normal(o, 1.0)))
+        fg.add_variable(f"b{b}x1", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0", f"b{b}x1"],
+                      it.LinearRelative(it.Normal(10.0, 1.0)))
+        fg.add_factor([f"b{b}x1"], it.Prior(it.Normal(o + 10.0, 1.0)))
+    return fg
+
+
+def _check_wide(fg, what, branches=8):
+    """_check_two_var's bars on every branch."""
+    worst = 0.0
+    for b in range(branches):
+        for v, mu in ((f"b{b}x0", 100.0 * b), (f"b{b}x1", 100.0 * b + 10)):
+            pts = fg.points(v)[:, 0]
+            m, sd = float(pts.mean()), float(pts.std())
+            check(abs(m - mu) < 0.2 and 0.4 < sd < 1.5,
+                  f"{what} {v}: mean {m}, std {sd}")
+            worst = max(worst, abs(m - mu))
+    return worst
+
+
+def _bench_forest(it, dev, **params):
+    """bench.py:119-130's wide forest: 32 branches of a Prior and a
+    LinearRelative, at N=100."""
+    fg = it.initfg(it.SolverParams(**params), device=dev)
+    for b in range(32):
+        fg.add_variable(f"b{b}x0", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0"], it.Prior(it.Normal(float(b), 0.5)))
+        fg.add_variable(f"b{b}x1", it.ContinuousScalar)
+        fg.add_factor([f"b{b}x0", f"b{b}x1"],
+                      it.LinearRelative(it.Normal(1.0, 0.5)))
+    return fg
+
+
+def phase_batched_solves(it, K, dev, N=50_000):
+    """The batched level end to end.  The eight-branch N=50k forest with
+    the default batch_cliques ("auto", width 8) cold and warm, and with
+    batch_cliques=False: launches and problems a solve, peak memory, the
+    bars of every branch.  Then, at N=100: bench.py's 32-branch forest
+    batched and per clique; fourdoor with batch_cliques=True; LineStep(20)
+    with fuse_sweep=True.  Returns the launches of the warm batched
+    solve."""
+    import incrementalinference_torch.parallel.scheduler as sched
+    from incrementalinference_torch.canonical import generate_line_step
+
+    on_cuda = torch.device(dev).type == "cuda"
+    rows = []
+    for label, params in (("batched, cold", {}), ("batched, warm", {}),
+                          ("per clique", {"batch_cliques": False})):
+        fg = _wide_two_var(it, N, dev, **params)
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with _Counting(sched, "up_solve_level") as levels:
+            K.reset_counts()
+            _sync(dev)
+            t0 = time.time()
+            it.solve_tree(fg)
+            _sync(dev)
+            wall = time.time() - t0
+        counts = dict(K.counts)
+        peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+        worst = _check_wide(fg, f"forest N={N} {label}")
+        check((levels.calls > 0) == (label != "per clique"),
+              f"forest {label}: up_solve_level calls {levels.calls}")
+        if on_cuda:
+            # every clique solves 6 large-pair stages up and 6 down: 96
+            # problems a solve.  Per clique each is its own launch; the
+            # batched level runs its up stages as one launch for all 8
+            # members (6) and the down sweep stays per clique (48)
+            want = 96 if label == "per clique" else 6 + 48
+            check(counts["problems"] == 96 and counts["launches"] == want,
+                  f"forest {label}: {counts['launches']} launches of "
+                  f"{counts['problems']} problems, not {want} of 96")
+        rows.append((label, wall, counts, peak, worst))
+        print(f"PASS forest of 8 two-variable branches N={N} {label}: "
+              f"wall {wall:.3f} s; launches {counts['launches']}, problems "
+              f"{counts['problems']}, wrapper calls {counts['calls']}; peak "
+              f"memory {peak / 2**30:.2f} GiB; worst |mean - mu| "
+              f"{worst:.3f}", flush=True)
+        del fg
+
+    walls = {}
+    for label, params in (("batched", {}), ("per clique",
+                                            {"batch_cliques": False})):
+        for _ in range(2):
+            fg = _bench_forest(it, dev, **params)
+            _sync(dev)
+            t0 = time.time()
+            it.solve_tree(fg)
+            _sync(dev)
+            walls.setdefault(label, []).append(time.time() - t0)
+        for b in range(32):
+            m = float(fg.points(f"b{b}x1").mean())
+            check(abs(m - (b + 1)) < 1.5, f"bench forest {label} b{b}: {m}")
+    print(f"PASS bench.py forest of 32 at N=100: batched walls "
+          f"{[round(w, 3) for w in walls['batched']]} s, per clique "
+          f"{[round(w, 3) for w in walls['per clique']]} s", flush=True)
+
+    fg, steps = it.fourdoor_sequence(it.SolverParams(batch_cliques=True),
+                                     device=dev)
+    tree = None
+    for s in steps:
+        s()
+        tree = it.solve_tree(fg, old_tree=tree)
+    for v, c in (("x1", 0.0), ("x3", 100.0), ("x4", 300.0)):
+        m = float(fg.points(v)[:, 0].mean())
+        check(abs(m - c) < 10.0, f"fourdoor batched {v}: {m}")
+    with _Counting(sched, "up_solve_segment") as segments:
+        fg = generate_line_step(20, graphinit=True, device=dev,
+                                params=it.SolverParams(fuse_sweep=True))
+        it.solve_tree(fg)
+    check(segments.calls >= 1, "no chain segment engaged")
+    for i in range(0, 21, 2):
+        m = float(fg.points(f"x{i}").mean())
+        check(abs(m - i) < 1.5, f"fuse_sweep LineStep x{i}: {m}")
+    print(f"PASS fourdoor N=100 batch_cliques=True at the bars of "
+          f"tests/test_solve.py:218-229; LineStep(20) fuse_sweep=True with "
+          f"{segments.calls} segment(s) at the bars of "
+          f"tests/test_fused_chain.py:19-26", flush=True)
+    return rows[1][2]["launches"], rows[1][2]["problems"], rows
+
+
+def _doors(it, dev, N=128):
+    fg = it.initfg(it.SolverParams(N=N), device=dev)
+    door = it.Mixture(it.Prior, [it.Normal(-100, 3), it.Normal(0, 3),
+                                 it.Normal(100, 3), it.Normal(300, 3)])
+    fg.add_variable("x1", it.ContinuousScalar)
+    fg.add_factor(["x1"], door)
+    fg.add_variable("x2", it.ContinuousScalar)
+    fg.add_factor(["x1", "x2"], it.LinearRelative(it.Normal(50.0, 2.0)))
+    fg.add_variable("x3", it.ContinuousScalar)
+    fg.add_factor(["x2", "x3"], it.LinearRelative(it.Normal(50.0, 4.0)))
+    fg.add_factor(["x3"], door)
+    return fg
+
+
+def phase_mesh(it, dev, meshes):
+    """Distribution over a mesh on the card, at the bars of
+    tests/test_multichip.py and tests/test_multichip_policy.py: under
+    "particles" the door graph, under "cliques" and "auto" the 6-branch
+    forest and the 10-variable chain, and the parametric tree solve of 16
+    branches with ``mesh=``; then dryrun_multichip(1), entry() and the
+    Kaess solve with precompile=True."""
+    from incrementalinference_torch.graft_entry import dryrun_multichip, \
+        entry
+
+    t0 = time.time()
+    for name, mesh in meshes:
+        fg = _doors(it, dev)
+        it.solve_tree(fg, mesh=mesh)
+        for v, cs in (("x1", (-100, 0)), ("x3", (0, 100))):
+            m = sum(_mode_mass(fg, v, c) for c in cs)
+            check(m > 0.7, f"{name} particles {v}: {m}")
+        for dist in ("cliques", "auto"):
+            fg = it.initfg(it.SolverParams(N=128, batch_cliques="auto",
+                                           batch_min_width=2), device=dev)
+            for b in range(6):
+                fg.add_variable(f"b{b}x0", it.ContinuousScalar)
+                fg.add_factor([f"b{b}x0"], it.Prior(it.Normal(float(b), 0.5)))
+                fg.add_variable(f"b{b}x1", it.ContinuousScalar)
+                fg.add_factor([f"b{b}x0", f"b{b}x1"],
+                              it.LinearRelative(it.Normal(1.0, 0.5)))
+            it.solve_tree(fg, mesh=mesh, distribute=dist)
+            for b in range(6):
+                m = float(fg.points(f"b{b}x1").mean())
+                check(abs(m - (b + 1)) < 1.5, f"{name} {dist} b{b}: {m}")
+            fg = it.initfg(it.SolverParams(N=64), device=dev)
+            prev = None
+            for i in range(10):
+                fg.add_variable(f"x{i}", it.ContinuousScalar)
+                if prev is None:
+                    fg.add_factor([f"x{i}"], it.Prior(it.Normal(0.0, 0.5)))
+                else:
+                    fg.add_factor([prev, f"x{i}"],
+                                  it.LinearRelative(it.Normal(3.0, 0.5)))
+                prev = f"x{i}"
+            it.solve_tree(fg, mesh=mesh, distribute=dist)
+            for i in range(10):
+                m = float(fg.points(f"x{i}")[:, 0].mean())
+                check(abs(m - 3.0 * i) < 1.0, f"{name} {dist} x{i}: {m}")
+        fg = it.initfg(device=dev)
+        for b in range(16):
+            fg.add_variable(f"b{b}x0", it.ContinuousScalar)
+            fg.add_factor([f"b{b}x0"], it.Prior(it.Normal(float(b), 0.5)),
+                          graphinit=False)
+            fg.add_variable(f"b{b}x1", it.ContinuousScalar)
+            fg.add_factor([f"b{b}x0", f"b{b}x1"],
+                          it.LinearRelative(it.Normal(1.0, 0.5)),
+                          graphinit=False)
+        it.solve_tree(fg, algorithm="parametric", mesh=mesh)
+        for b in range(16):
+            e1 = float(fg.var(f"b{b}x1").parametric_point[0])
+            check(abs(e1 - (b + 1)) < 1e-3, f"{name} parametric b{b}: {e1}")
+        print(f"PASS mesh {name}: particles (doors), cliques and auto "
+              f"(6-branch forest, 10-variable chain), parametric tree of "
+              f"16 branches at their tests' bars; {time.time() - t0:.1f} s",
+              flush=True)
+    dryrun_multichip(1, device=dev)
+    fn, args = entry(device=dev)
+    mu, _ = fn(*args)
+    _sync(dev)
+    check(mu.shape == (128, 2) and bool(torch.isfinite(mu).all()),
+          f"entry(): {tuple(mu.shape)}")
+    tree = it.solve_tree(it.generate_kaess(graphinit=True, device=dev),
+                         precompile=True)
+    check(tree.num_cliques() >= 1, "Kaess with precompile=True")
+    print(f"PASS dryrun_multichip(1), entry() {tuple(mu.shape)}, Kaess "
+          f"solve with precompile=True; mesh phase {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def phase_batched(it, K, dev):
+    """Slice 8a on the card (budget 90 s): the batched kernel launch, the
+    batched N=50k forest and the N=100 batched paths, the mesh."""
+    from incrementalinference_torch.parallel.mesh import Mesh, make_mesh
+
+    t0 = time.time()
+    kernel = phase_batched_kernel(K, dev)
+    launches, problems, _ = phase_batched_solves(it, K, dev)
+    phase_profile(it, "bench.py forest of 32, batched, N=100",
+                  lambda: _bench_forest(it, dev))
+    phase_mesh(it, dev, (("make_mesh() (1 device)", make_mesh()),
+                         ("Mesh([cuda:0] * 4)",
+                          Mesh([torch.device("cuda", 0)] * 4))))
+    print(f"# phase_batched: {time.time() - t0:.1f} s", flush=True)
+    return launches, problems, kernel
+
+
 def timing_inputs(K, n, dof, dev):
     """Row terms shaped like the solve's products: unit-scale particles,
     bandwidth ~ 0.3."""
@@ -1131,6 +1477,15 @@ def bound_ms(n, dof):
     return max(t_bytes, t_flops, t_exp), t_bytes, t_flops, t_exp
 
 
+def library_row_logsumexp(a2, iva, ivm, muB):
+    """The library route to the same function: the (Na, Nb) weights by two
+    addmm calls, then torch.logsumexp.  Timed only, never used by the
+    port."""
+    w = torch.addmm(a2[:, None], iva, (muB * muB).T)
+    w.addmm_(ivm, muB.T, alpha=-2.0).mul_(-0.5)
+    return torch.logsumexp(w, dim=1)
+
+
 def time_three_ways(K, a2, iva, ivm, muB, tag):
     """Kernel, plain version and library route on one set of row terms:
     their agreement and CUDA-event times, beside the bound of the shape."""
@@ -1145,9 +1500,7 @@ def time_three_ways(K, a2, iva, ivm, muB, tag):
     p_ms = cuda_ms(lambda: K.row_logsumexp_plain(a2, iva, ivm, muB), reps=5)
 
     def library():
-        w = torch.addmm(a2[:, None], iva, (muB * muB).T)
-        w.addmm_(ivm, muB.T, alpha=-2.0).mul_(-0.5)
-        return torch.logsumexp(w, dim=1)
+        return library_row_logsumexp(a2, iva, ivm, muB)
 
     lib_out = library()
     check(rel_err(lib_out, ref) <= _TOL, f"{tag}: library route disagrees")
@@ -1722,6 +2075,9 @@ def main() -> int:
           flush=True)
     by_path["persistence: loaded N=50000 graph re-solved with the loaded "
             "tree"] = phase_persistence(it, K)
+    b_launches, b_problems, batched = phase_batched(it, K, dev)
+    by_path["batched level: forest of 8 two-variable branches N=50000, "
+            f"one warm solve ({b_problems} problems)"] = b_launches
     by_path["parametric LineStep(1000), dense and cg"] = \
         phase_param_linestep(it, K, dev)
     by_path["parametric SE(3) chain of 60, autoinit and solves"] = \
@@ -1736,6 +2092,7 @@ def main() -> int:
         "two-variable N=50000, one solve": launches,
         "fourdoor N=50000, solves 1-3": fd_launches, **by_path},
         handed_by_path)
+    entry["batched"] = batched
     del handed_by_path
     from incrementalinference_torch.canonical import generate_line_step
     phase_profile(it, "LineStep(20) N=100", lambda: generate_line_step(

@@ -66,6 +66,8 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                skip_cliques: Sequence[int] = (),
                delay_cliques: Optional[Dict[int, float]] = None,
                timeout: Optional[float] = None,
+               mesh=None, distribute: str = "particles",
+               precompile=False,
                verbose: bool = False) -> BayesTree:
     """Nonparametric MM-iSAM solve over the Bayes tree (reference
     solveTree!).  Runs on the graph's device.  Returns the tree: pass it
@@ -82,9 +84,30 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
     the cliques not yet solved are marked ERROR_STATUS and the solve raises
     after the sweep.  With ``record_cliques`` the traces are also written
     under ``params.logpath``: ``HistoryAll_<solve>.txt`` and, appended
-    solve after solve, ``logs/cliq<cid>/log.txt``."""
+    solve after solve, ``logs/cliq<cid>/log.txt``.
+
+    ``mesh`` (parallel/mesh.py ``Mesh``) distributes the solve, as the JAX
+    package's ``distribute`` policy does:
+    - ``"particles"``: every clique splits its per-particle solves over the
+      mesh (each variable's N must be a multiple of the mesh's size), and
+      ``batch_cliques`` is switched off on the graph's params;
+    - ``"cliques"``: with ``batch_cliques`` on, each batched level's
+      classes split their members over the mesh (and the other cliques
+      their particles); with it off, the cliques of each level are placed
+      on the mesh's devices round robin;
+    - ``"auto"``: batched levels split their members, the other levels
+      their particles (the width-aware policy).
+    The parametric algorithm splits each level's batches over the mesh.
+
+    ``precompile``: True prepares the solve's update structures first
+    (parallel/precompile.py ``precompile_updates``: on CUDA it builds the
+    kernel); an int asks the JAX package's process farm, which the port
+    does not have: it prepares in-process and says so in the log."""
     if algorithm == "parametric":
-        return solve_tree_parametric(fg, old_tree=old_tree, order=order)
+        return solve_tree_parametric(fg, old_tree=old_tree, order=order,
+                                     mesh=mesh)
+    if distribute not in ("particles", "cliques", "auto"):
+        raise ValueError(f"unknown distribute {distribute!r}")
     if algorithm != "default":
         raise ValueError(f"unknown algorithm {algorithm!r}")
     params = fg.params
@@ -98,17 +121,48 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
             if solve_key in v.beliefs:
                 v.beliefs[snap] = v.beliefs[solve_key]
     fifo_freeze(fg)
+    if mesh is not None and distribute == "particles":
+        for v in fg.variables.values():
+            if v.N % len(mesh.devices):
+                raise ValueError(
+                    f"N={v.N} must divide the mesh size "
+                    f"{len(mesh.devices)} for particle sharding")
 
     tree = build_tree_reset(fg, order=order, old_tree=old_tree)
+    if precompile:
+        from .parallel.precompile import (precompile_processes,
+                                          precompile_updates)
+        if isinstance(precompile, bool):
+            n = precompile_updates(fg, tree, solve_key=solve_key)
+        else:
+            n = precompile_processes(fg, tree, n_procs=int(precompile),
+                                     solve_key=solve_key)
+        if verbose:
+            logger.info("precompiled %d structures", n)
     if verbose:
         logger.info("tree: %d cliques, depth %d, build %.3fs",
                     tree.num_cliques(), len(tree.levels()), tree.build_time)
+
+    # the distribution policy of the JAX package (jl_tpu/api.py:166-200)
+    batched_mesh = (mesh if (mesh is not None
+                             and distribute in ("cliques", "auto")
+                             and bool(params.batch_cliques)) else None)
+    if (mesh is not None and batched_mesh is None and distribute != "auto"
+            and params.batch_cliques):
+        fg.params = params = params.replace(batch_cliques=False)
+    if mesh is None or distribute == "cliques" and batched_mesh is None:
+        sweep_mesh = None
+    else:
+        sweep_mesh = mesh
     tree.traces = solve_tree_sweeps(
         fg, tree, solve_key=solve_key,
         up=params.upsolve if up is None else up,
         down=params.downsolve if down is None else down,
         skip_cliques=skip_cliques, delay_cliques=delay_cliques,
-        timeout=timeout)
+        timeout=timeout, mesh=sweep_mesh,
+        devices=(list(mesh.devices) if mesh is not None
+                 and distribute == "cliques" and batched_mesh is None
+                 else None))
     if params.record_cliques and tree.traces:
         _write_history(params.logpath, fg.solve_count, tree.traces)
     for v in fg.variables.values():

@@ -55,8 +55,8 @@ class SolverParams:
     limit_treeinit_iters: int = 10
     # Max factors per variable before the graph builder refuses.
     max_incidence: int = 500
-    # Elimination ordering: "colamd" | "ccolamd" (constrained min-degree).
-    # The JAX package also offers "qr"; the port does not yet.
+    # Elimination ordering: "qr" | "colamd" | "ccolamd" (constrained
+    # min-degree), as in the JAX package.
     ordering: str = "ccolamd"
     # Gauss-Newton iterations for the batched per-particle solve.
     conv_iters: int = 25
@@ -79,18 +79,32 @@ class SolverParams:
     record_cliques: bool = False
     # dtype for belief/particle arrays.
     dtype: str = "float32"
-    # Batched same-level clique solves (JAX package).  Kept for parity: the
-    # port always sweeps cliques one at a time.
+    # Batched same-level clique solves (parallel/scheduler.py
+    # up_solve_level): True batches every level, "auto" the levels of at
+    # least batch_min_width cliques, False none.  The isomorphic cliques of
+    # a batched level keep their particles stacked and run each update of
+    # their schedule as one batched update (one kernel launch per large
+    # product stage for all of them).  Solves with skipped or delayed
+    # cliques, or with round-robin devices, take the per-clique sweep.
+    # These two fields decide whether a level batches.  The attribute
+    # ``batch_stacked = False`` only picks how a batched level runs (equal
+    # update plans grouped position by position); it is kept for parity
+    # with the JAX package, which reads it the same way, and like there it
+    # is no field, so ``replace()`` does not carry it.
     batch_cliques: object = "auto"
     batch_min_width: int = 8
-    # Multi-device particle sharding (JAX package); kept for parity.
+    # With a mesh (solve_tree(mesh=...)): the cliques outside a batched
+    # level split their per-particle solves over the mesh's devices
+    # ("auto"/True), or stay on one device (False).
     shard_particles: object = "auto"
     # Whole-clique Gibbs schedule through one plan (ops/fused.py
     # fused_clique_gibbs) instead of one graph write per variable update.
     # True/"auto" take the clique chain, False the per-variable path; both
     # run the same update schedule.
     fuse_clique: object = "auto"
-    # Segment fusion (JAX package); kept for parity, not ported.
+    # Chain segments: True up-solves each run of single-child cliques
+    # through one call (ops/fused.py fused_up_segment), the inter-clique
+    # messages passed inside it; "auto" is off, as in the JAX package.
     fuse_sweep: object = "auto"
     # Wildfire down-solve gate for incremental solves: a recycled clique
     # whose incoming down message moved at most this many spreads since the

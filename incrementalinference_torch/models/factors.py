@@ -509,3 +509,40 @@ register_factor_model(ManifoldFactor, ("Z",), ("manifold",))
 register_factor_model(ManifoldPrior, ("p0", "Z"), ("manifold",))
 register_factor_model(MsgRelativeLikelihood, ("belief",), ("manifold",))
 register_factor_model(GaussianJoint, ("p0s", "cov"), ("manifolds",))
+
+
+#: registered model fields that a residual does not read as a per-factor
+#: tensor: the measurement distribution is sampled (or feeds the stacked
+#: moments), and the rest is structure that a group or class key holds
+NOT_READ_BY_RESIDUAL = frozenset({"Z", "manifold", "partial", "belief",
+                                  "ipc"})
+
+
+def stackable_residual_params(model, device) -> tuple:
+    """The per-factor tensors a model's residual reads, which a stack of
+    same-structure factors (a parametric factor group, the members of a
+    batched clique level) carries along its leading axis: the model's
+    ``residual_params``, else none.  Raises for a model whose registered
+    fields it does not know: using the first factor's parameters for every
+    factor would be wrong."""
+    if isinstance(model, Mixture):
+        return stackable_residual_params(model.mechanics, device)
+    if hasattr(model, "residual_params"):
+        return model.residual_params(device)
+    entry = MODEL_REGISTRY.get(type(model).__name__)
+    if entry is None or entry[0] is not type(model) \
+            or not set(entry[1] + entry[2]) <= NOT_READ_BY_RESIDUAL:
+        raise NotImplementedError(
+            f"cannot stack {type(model).__name__} residuals: register it "
+            f"with fields among {sorted(NOT_READ_BY_RESIDUAL)}")
+    return ()
+
+
+def residual_at(model, params, meas, *points):
+    """The model's residual with ``params`` (from
+    :func:`stackable_residual_params`) in place of its own tensors."""
+    if isinstance(model, Mixture):
+        return residual_at(model.mechanics, params, meas, *points)
+    if params:
+        return model.residual_with(params, meas, *points)
+    return model.residual(meas, *points)

@@ -8,6 +8,13 @@ closed-form branch (one exact step); the rest run the Levenberg-Marquardt
 accept/reject loop.  Entropy inflation is uniform tangent noise re-solved
 ``inflate_cycles`` times; multihypothesis partitions are masks
 (ops/hypo.py).
+
+:func:`eval_factor_core_batched` evaluates one factor for the B members of
+a batched clique level: every draw is made on the member's own key, as it
+would be alone, and the Gauss-Newton solve runs once over the B·N
+particles, each particle reading its member's residual parameters.  With a
+``mesh`` that solve is split over the mesh's devices along the particle
+axis (the draws are made on the full N first) and gathered back.
 """
 
 from __future__ import annotations
@@ -20,12 +27,14 @@ from torch.func import jacfwd, vmap
 from .. import keys as _keys
 from ..beliefs import Belief, loo_bandwidth, make_belief, spread_estimate
 from ..manifolds import Manifold
+from ..models.factors import residual_at, stackable_residual_params
 from .hypo import build_masks, draw_hypotheses, parse_multihypo
 from .product import Proposal
 
 __all__ = ["batched_gauss_newton", "add_entropy", "ConvSpec",
            "make_conv_spec", "null_surplus_map", "static_dim_mask",
-           "eval_factor_core", "eval_factor", "sample_factor",
+           "eval_factor_core", "eval_factor_core_batched", "eval_factor",
+           "sample_factor",
            "approx_conv_belief", "proposal_from_factor"]
 
 
@@ -42,11 +51,16 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
                          sf_slot: int, iters: int = 25,
                          damping: float = 1e-6,
                          partial_dims: Optional[Tuple[int, ...]] = None,
-                         linear: bool = False) -> torch.Tensor:
+                         linear: bool = False,
+                         params: Tuple[torch.Tensor, ...] = ()
+                         ) -> torch.Tensor:
     """For every particle i, minimise ||residual(meas_i, ..., x, ...)||²
     over x in argument slot ``sf_slot``.
 
     meas (n, zdim); others: tuple of (n, point_dim_k); x0 (n, point_dim).
+    ``params``: per-particle residual tensors (n, ...) read in place of the
+    model's own (models/factors.py ``residual_at``), so that particles of
+    several same-structure factors solve in one pass.
     ``linear``: one closed-form GN step (exact for affine residuals).
     Otherwise an LM loop: a step is kept only when finite and not worse;
     rejection raises the damping ×10 (≤ 1e8), acceptance lowers it ÷3
@@ -58,14 +72,19 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
     eye = torch.eye(dof, dtype=dt, device=dev)
     z = torch.zeros((x0.shape[0], dof), dtype=dt, device=dev)
 
-    def res(X, x, meas_i, *others_i):
+    n_params = len(params)
+
+    def res(X, x, meas_i, *rest):
         X = torch.where(free, X, zero)
-        pts = list(others_i)
+        pts = list(rest[n_params:])
         pts.insert(sf_slot, manifold.exp(x, X))
+        if n_params:
+            return residual_at(model, rest[:n_params], meas_i, *pts)
         return model.residual(meas_i, *pts)
 
     jac = vmap(jacfwd(res, argnums=0))
     resv = vmap(res)
+    others = tuple(params) + tuple(others)
 
     def gn_step(x, lam):
         r0 = resv(z, x, meas, *others)                       # (n, resdim)
@@ -93,13 +112,25 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
     return x
 
 
-def add_entropy(manifold: Manifold, points: torch.Tensor, key: int,
+def add_entropy(manifold: Manifold, points: torch.Tensor, key,
                 spread, partial_dims: Optional[Tuple[int, ...]] = None):
     """Uniform tangent perturbation X_d ~ spread·U(-0.5, 0.5) (reference
-    addEntropyOnManifold!)."""
-    n, dof = points.shape[0], manifold.dof
-    u = torch.rand((n, dof), generator=_keys.generator(key, points.device),
-                   device=points.device, dtype=points.dtype)
+    addEntropyOnManifold!).  With a sequence of keys, ``points`` is
+    (B, n, point_dim) and ``spread`` (B,): member b draws from key b."""
+    if isinstance(key, (list, tuple)):
+        n = points.shape[1]
+        spread = torch.as_tensor(spread, device=points.device)
+        if spread.dim():
+            spread = spread[:, None, None]
+    else:
+        n, key = points.shape[0], [key]
+    dof = manifold.dof
+    u = torch.stack([torch.rand((n, dof),
+                                generator=_keys.generator(k, points.device),
+                                device=points.device, dtype=points.dtype)
+                     for k in key])
+    if points.dim() == 2:
+        u = u[0]
     noise = spread * (u - 0.5)
     if partial_dims is not None:
         noise = torch.where(_free_mask(dof, partial_dims, points.device),
@@ -200,79 +231,157 @@ def static_dim_mask(manifold: Manifold, partial_dims) -> Tuple[bool, ...]:
 
 def eval_factor_core(manifold: Manifold, model, key: int,
                      var_points: Tuple[torch.Tensor, ...],
-                     spec: ConvSpec) -> torch.Tensor:
+                     spec: ConvSpec, mesh=None) -> torch.Tensor:
     """Proposal particles for the solve target (reference evalFactor →
     evalPotentialSpecific); ``var_points`` share one particle count."""
+    return eval_factor_core_batched(
+        manifold, (model,), (key,), tuple(p[None] for p in var_points),
+        spec, mesh)[0]
+
+
+def _member_residuals(models, n: int, device):
+    """(model, per-particle residual tensors) for one Gauss-Newton pass
+    over the particles of every member (n each), or None when the members'
+    residuals cannot be stacked (then each member solves alone)."""
+    m0 = models[0]
+    if all(m is m0 for m in models):
+        return m0, ()
+    try:
+        per = [stackable_residual_params(m, device) for m in models]
+    except NotImplementedError:
+        return None
+    if not per[0]:
+        return m0, ()
+    return m0, tuple(torch.repeat_interleave(torch.stack(c), n, dim=0)
+                     for c in zip(*per))
+
+
+def _solve_particles(manifold, models, meas, others, x0, sf_slot,
+                     spec: ConvSpec, mesh) -> torch.Tensor:
+    """The Gauss-Newton solve of every member's particles, member-major
+    (B·n rows); with a mesh, split along the particle axis over its
+    devices (when the rows divide evenly) and gathered back."""
+    kw = dict(iters=spec.iters, damping=spec.damping,
+              partial_dims=spec.partial_dims, linear=spec.linear)
+    rows = x0.shape[0]
+    n = rows // len(models)
+    plan = _member_residuals(models, n, x0.device)
+    if plan is None:
+        return torch.cat([_solve_particles(
+            manifold, (m,), meas[b * n:(b + 1) * n],
+            tuple(o[b * n:(b + 1) * n] for o in others),
+            x0[b * n:(b + 1) * n], sf_slot, spec, mesh)
+            for b, m in enumerate(models)])
+    model, params = plan
+    devices = list(mesh.devices) if mesh is not None else []
+    if len(devices) < 2 or rows % len(devices):
+        return batched_gauss_newton(manifold, model, meas, others, x0,
+                                    sf_slot, params=params, **kw)
+    per = rows // len(devices)
+    parts = []
+    for c, dev in enumerate(devices):
+        def part(t, c=c, dev=dev):
+            return t[c * per:(c + 1) * per].to(dev)
+        parts.append(batched_gauss_newton(
+            manifold, model, part(meas), tuple(part(o) for o in others),
+            part(x0), sf_slot, params=tuple(part(p) for p in params), **kw))
+    return torch.cat([p.to(x0.device) for p in parts])
+
+
+def eval_factor_core_batched(manifold: Manifold, models, keys,
+                             var_points: Tuple[torch.Tensor, ...],
+                             spec: ConvSpec, mesh=None) -> torch.Tensor:
+    """Proposal particles (B, N, point_dim) for the B members of a batched
+    level: ``models`` and ``keys`` hold each member's factor model and key,
+    ``var_points`` each (B, N, point_dim).  Every draw is made on the
+    member's key exactly as :func:`eval_factor_core` makes it for that
+    member alone; the per-particle solve runs once over all B·N
+    particles."""
     partial_dims = spec.partial_dims
     sfidx, nvars = spec.sfidx, spec.nvars
     x_cur = var_points[sfidx]
-    maxlen, dev = x_cur.shape[0], x_cur.device
-    k_hypo, k_meas, k_null, k_inflate = _keys.split(key, 4)
+    B, maxlen = x_cur.shape[:2]
+    dev = x_cur.device
+    ks = [_keys.split(k, 4) for k in keys]      # hypo, meas, null, inflate
+    null_keys = [k[2] for k in ks]
+
+    def flat(t):
+        return t.reshape((B * maxlen,) + t.shape[2:])
+
+    def unflat(t):
+        return t.reshape((B, maxlen) + t.shape[1:])
+
+    def hypotheses():
+        return torch.cat([draw_hypotheses(k[0], maxlen, nvars,
+                                          spec.multihypo, spec.nullhypo,
+                                          dev) for k in ks])
 
     if spec.is_prior:
-        pts = model.sample_points(_keys.generator(k_meas, dev), maxlen,
-                                  manifold)
+        pts = torch.stack([m.sample_points(_keys.generator(k[1], dev),
+                                           maxlen, manifold)
+                           for m, k in zip(models, ks)])
         if partial_dims is not None:
-            pts = _overlay_partial(manifold, x_cur, pts, partial_dims)
+            pts = unflat(_overlay_partial(manifold, flat(x_cur), flat(pts),
+                                          partial_dims))
         if spec.nullhypo > 0.0:
-            mh = draw_hypotheses(k_hypo, maxlen, nvars, None, spec.nullhypo,
-                                 dev)
+            mh = hypotheses()
             spread = spec.spread_nh * spread_estimate(manifold, x_cur, x_cur)
-            nulled = add_entropy(manifold, x_cur, k_null, spread,
+            nulled = add_entropy(manifold, x_cur, null_keys, spread,
                                  partial_dims)
-            pts = torch.where((mh == 0)[:, None], nulled, pts)
+            pts = unflat(torch.where((mh == 0)[:, None], flat(nulled),
+                                     flat(pts)))
         return pts
 
-    mhidx = draw_hypotheses(k_hypo, maxlen, nvars, spec.multihypo,
-                            spec.nullhypo, dev)
+    mhidx = hypotheses()
     masks = build_masks(mhidx, sfidx, nvars, spec.multihypo)
-    meas = model.sample(_keys.generator(k_meas, dev), maxlen)
+    meas = torch.cat([m.sample(_keys.generator(k[1], dev), maxlen)
+                      for m, k in zip(models, ks)])
+    vp = [flat(p) for p in var_points]
 
     if masks.uncertain_slot is None:
-        others = tuple(var_points[i] for i in range(nvars) if i != sfidx)
+        others = tuple(vp[i] for i in range(nvars) if i != sfidx)
         sf_slot = sfidx
     else:
         # the selected hypothesis variable per particle fills the uncertain
         # slot; only uncertain candidates stack (they share a manifold)
         _, uncertain, _ = parse_multihypo(spec.multihypo)
-        cand = torch.stack([var_points[i] for i in uncertain])
+        cand = torch.stack([vp[i] for i in uncertain])
         lookup = [0] * nvars
         for pos, i in enumerate(uncertain):
             lookup[i] = pos
         gidx = torch.tensor(lookup, device=dev)[masks.gather_idx]
-        gathered = cand[gidx, torch.arange(maxlen, device=dev)]
+        gathered = cand[gidx, torch.arange(B * maxlen, device=dev)]
         mech_points = []
         for slot, fvidx in enumerate(masks.mech_vars):
             if slot == masks.uncertain_slot and fvidx != sfidx:
                 mech_points.append(gathered)
             else:
-                mech_points.append(var_points[fvidx])
+                mech_points.append(vp[fvidx])
         sf_slot = masks.mech_vars.index(sfidx)
         others = tuple(p for i, p in enumerate(mech_points) if i != sf_slot)
 
     other_cloud = x_cur
     if others and others[0].shape[-1] == x_cur.shape[-1]:
-        other_cloud = others[0]
-    base_spread = spread_estimate(manifold, x_cur, other_cloud)
+        other_cloud = unflat(others[0])
+    base_spread = spread_estimate(manifold, x_cur, other_cloud)   # (B,)
 
-    x, kc = x_cur, k_inflate
+    x, kc = vp[sfidx], [k[3] for k in ks]
     for _ in range(spec.cycles):
-        kc, k_e = _keys.split(kc, 2)
+        pairs = [_keys.split(k, 2) for k in kc]
+        kc = [p[0] for p in pairs]
         if spec.inflation > 0.0:
-            x = add_entropy(manifold, x, k_e, spec.inflation * base_spread,
-                            partial_dims)
-        solved = batched_gauss_newton(
-            manifold, model, meas, others, x, sf_slot, iters=spec.iters,
-            damping=spec.damping, partial_dims=partial_dims,
-            linear=spec.linear)
+            x = flat(add_entropy(manifold, unflat(x), [p[1] for p in pairs],
+                                 spec.inflation * base_spread, partial_dims))
+        solved = _solve_particles(manifold, models, meas, others, x,
+                                  sf_slot, spec, mesh)
         x = torch.where(masks.solve_mask[:, None], solved, x)
 
     if spec.nullhypo > 0.0 or spec.multihypo is not None:
         inactive = masks.null_mask | masks.snap_mask
-        nulled = add_entropy(manifold, x_cur, k_null,
+        nulled = add_entropy(manifold, x_cur, null_keys,
                              spec.spread_nh * base_spread, partial_dims)
-        x = torch.where(inactive[:, None], nulled, x)
-    return x
+        x = torch.where(inactive[:, None], flat(nulled), x)
+    return unflat(x)
 
 
 def _tile_to(p: torch.Tensor, maxlen: int) -> torch.Tensor:

@@ -16,10 +16,11 @@ import torch
 
 from .. import keys as _keys
 from ..beliefs import Belief, make_belief
-from ..models.factors import GenericMarginal, MetaPrior
+from ..models.factors import MODEL_REGISTRY, GenericMarginal, MetaPrior
 
 __all__ = ["propagate_belief", "local_product", "local_product_and_update",
-           "prepare_update", "UpdatePlan", "find_shortest_path_dijkstra",
+           "prepare_update", "UpdatePlan", "model_structure",
+           "find_shortest_path_dijkstra",
            "is_path_factors_homogeneous", "approx_conv_path",
            "eval_factor_temporary"]
 
@@ -75,8 +76,37 @@ def conv_entry(fg, f, target: str, nsrp: float):
     return entry
 
 
+def model_structure(x):
+    """The structure of a factor model, as the JAX package's
+    ``tree_structure`` of it: its type, the structure of its registered
+    children and its static fields; tensors and arrays are leaves, and a
+    distribution counts by its type.  Models of equal structure batch
+    together."""
+    if isinstance(x, (torch.Tensor, np.ndarray, float, int)):
+        return "leaf"
+    if isinstance(x, (list, tuple)):
+        return tuple(model_structure(e) for e in x)
+    if isinstance(x, Belief):
+        return ("Belief", tuple(x.points.shape[1:]))
+    entry = MODEL_REGISTRY.get(type(x).__name__)
+    if entry is None or entry[0] is not type(x):
+        return type(x)
+
+    def static(v):
+        try:
+            hash(v)
+            return v
+        except TypeError:
+            return repr(v)
+
+    return (type(x), tuple(model_structure(getattr(x, c, None))
+                           for c in entry[1]),
+            tuple(static(getattr(x, a, None)) for a in entry[2]))
+
+
 class UpdatePlan:
-    """A prepared variable update: static structure + tensor inputs."""
+    """A prepared variable update: static structure + tensor inputs.
+    Plans of equal ``structure_key`` run as one batched update."""
 
     def __init__(self, fg, target, manifold, models, nested, old_points,
                  specs, masks, n_out, solve_key):
@@ -90,6 +120,12 @@ class UpdatePlan:
         self.masks = tuple(masks)
         self.n_out = n_out
         self.solve_key = solve_key
+
+    @property
+    def structure_key(self):
+        return (self.manifold, self.specs, self.masks, self.n_out,
+                tuple(model_structure(m) for m in self.models),
+                tuple(tuple(tuple(p.shape) for p in v) for v in self.nested))
 
     def ipc(self):
         return ipc_of(self.masks, self.old_points.device)

@@ -47,9 +47,11 @@
 //   - muB is staged by cp.async into a two-stage ring, laid out [dof][tile]
 //     so the float4 reads have no bank conflicts: the next tile arrives
 //     while this one is consumed, one __syncthreads a tile.
-//   - The grid is (row blocks, column splits); the wrapper picks the split
-//     count that fills the last wave of resident blocks
-//     (row_lse_resident_blocks).  Lanes merge by shuffles (max, one rescale,
+//   - The grid is (row blocks, column splits, members of a batch); the
+//     wrapper picks the split count that fills the last wave of resident
+//     blocks (row_lse_resident_blocks), counting every member's blocks, so a
+//     batch of same-level cliques (the JAX package vmaps the Pallas call
+//     over them) is one launch and fills waves a single problem cannot.  Lanes merge by shuffles (max, one rescale,
 //     sum), splits by a second, tiny kernel: no atomics, so the result is
 //     the same from run to run.
 //   - Tensor cores stay out: the contraction depth is 1 + 2 dof <= 17, fp32
@@ -184,6 +186,15 @@ row_lse_partial(const float* __restrict__ a2, const float* __restrict__ iva,
   constexpr int CH = Shape<D>::kChunk;
   __shared__ __align__(16) float s_b[2][D * TN];
 
+  // the member of the batch: its own A rows, B columns and partials
+  const size_t member = blockIdx.z;
+  a2 += member * na;
+  iva += member * na * D;
+  ivmuA += member * na * D;
+  muB += member * nb * D;
+  part_m += member * gridDim.y * na;
+  part_s += member * gridDim.y * na;
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row0 = (blockIdx.x * kWarps + warp) * R;
@@ -245,20 +256,25 @@ row_lse_partial(const float* __restrict__ a2, const float* __restrict__ iva,
   }
 }
 
-// merge the column splits' (m, s) pairs (base 2) and leave base e
+// merge the column splits' (m, s) pairs (base 2) and leave base e; one
+// thread per row of the whole batch, partials laid out (batch, splits, na)
 __global__ void row_lse_combine(const float* __restrict__ part_m,
                                 const float* __restrict__ part_s,
-                                float* __restrict__ out, int na, int splits) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= na) return;
-  float mx = part_m[row];
+                                float* __restrict__ out, int na, int splits,
+                                int batch) {
+  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= static_cast<size_t>(batch) * na) return;
+  const size_t member = r / na, row = r - member * na;
+  const float* pm = part_m + member * splits * na + row;
+  const float* ps = part_s + member * splits * na + row;
+  float mx = pm[0];
   for (int k = 1; k < splits; ++k)
-    mx = fmaxf(mx, part_m[static_cast<size_t>(k) * na + row]);
+    mx = fmaxf(mx, pm[static_cast<size_t>(k) * na]);
   float sum = 0.f;
   for (int k = 0; k < splits; ++k)
-    sum += part_s[static_cast<size_t>(k) * na + row] *
-           exp2f(part_m[static_cast<size_t>(k) * na + row] - mx);
-  out[row] = (mx + log2f(fmaxf(sum, 1e-30f))) * kLn2;
+    sum += ps[static_cast<size_t>(k) * na] *
+           exp2f(pm[static_cast<size_t>(k) * na] - mx);
+  out[r] = (mx + log2f(fmaxf(sum, 1e-30f))) * kLn2;
 }
 
 template <int D>
@@ -318,21 +334,25 @@ int row_lse_resident_blocks(int dof) {
   return -1;
 }
 
-// a2 (na), iva and ivmuA (na, dof), muB (nb, dof), all float32 contiguous;
-// part_m and part_s are (splits, na) scratch, out is (na).  The splits
-// cover nb columns, cols_per_split each, none empty.  Returns
-// cudaGetLastError() after the two launches (0 on success).
+// A batch of `batch` independent problems, member after member:
+// a2 (batch, na), iva and ivmuA (batch, na, dof), muB (batch, nb, dof), all
+// float32 contiguous; part_m and part_s are (batch, splits, na) scratch,
+// out is (batch, na).  The splits cover nb columns, cols_per_split each,
+// none empty.  The partial kernel takes its member from blockIdx.z, so a
+// whole batch is one launch of each kernel.  Returns cudaGetLastError()
+// after the two launches (0 on success).
 int row_lse_launch(const float* a2, const float* iva, const float* ivmuA,
                    const float* muB, float* part_m, float* part_s, float* out,
                    int na, int nb, int dof, int splits, int cols_per_split,
-                   void* stream_ptr) {
+                   int batch, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows = row_lse_rows_per_block(dof);
   if (rows <= 0 || na <= 0 || nb <= 0 || splits <= 0 || cols_per_split <= 0 ||
+      batch <= 0 || batch > 65535 ||
       static_cast<long long>(splits - 1) * cols_per_split >= nb ||
       static_cast<long long>(splits) * cols_per_split < nb)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((na + rows - 1) / rows, splits);
+  const dim3 grid((na + rows - 1) / rows, splits, batch);
   switch (dof) {
 #define X(D)                                                      \
   case D:                                                         \
@@ -346,8 +366,9 @@ int row_lse_launch(const float* a2, const float* iva, const float* ivmuA,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  row_lse_combine<<<(na + 255) / 256, 256, 0, stream>>>(part_m, part_s, out,
-                                                        na, splits);
+  const long long total = static_cast<long long>(batch) * na;
+  row_lse_combine<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                    stream>>>(part_m, part_s, out, na, splits, batch);
   return static_cast<int>(cudaGetLastError());
 }
 

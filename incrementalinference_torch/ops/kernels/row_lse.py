@@ -16,7 +16,12 @@ memory with an online (reference, sum-exp2) and never builds it.
   There is no fallback from one to the other.
 - The kernel is built with ``nvcc`` at first use into ``build/`` beside this
   file (listed in ``.gitignore``) and bound with ctypes.
-- ``counts["launches"]`` counts kernel launches and nothing else;
+- Every function takes an optional leading member axis: B independent
+  problems of one shape (a batched level of same-structure cliques) are
+  one launch, the kernel taking its member from ``blockIdx.z``.  This is
+  what ``jax.vmap`` of the Pallas call does in the JAX package.
+- ``counts["launches"]`` counts kernel launches and nothing else,
+  ``counts["problems"]`` the members those launches solved;
   ``counts["calls"]`` counts every call of the wrapper, on any device.
 """
 
@@ -45,7 +50,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the kernel holds dof in registers, instantiated for 1..MAX_DOF
 MAX_DOF = 8
 
-counts = {"launches": 0, "calls": 0}
+counts = {"launches": 0, "problems": 0, "calls": 0}
 _LOCK = threading.Lock()
 _LIB = None
 #: seconds the last nvcc build took (None: loaded an existing build)
@@ -53,8 +58,8 @@ build_seconds = None
 
 
 def reset_counts() -> None:
-    counts["launches"] = 0
-    counts["calls"] = 0
+    for k in counts:
+        counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -91,7 +96,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib = ctypes.CDLL(_SO)
         lib.row_lse_launch.restype = ctypes.c_int
         lib.row_lse_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         for fn in (lib.row_lse_rows_per_block, lib.row_lse_chunk_cols,
                    lib.row_lse_resident_blocks):
             fn.restype = ctypes.c_int
@@ -101,6 +106,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 
 
 def _check(a2, iva, ivmuA, muB):
+    """(batch, na, nb, dof); ``batch`` is None for unbatched inputs."""
     for name, t in (("a2", a2), ("iva", iva), ("ivmuA", ivmuA),
                     ("muB", muB)):
         if not isinstance(t, torch.Tensor):
@@ -109,33 +115,38 @@ def _check(a2, iva, ivmuA, muB):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != a2.device:
             raise ValueError(f"{name} is on {t.device}, a2 on {a2.device}")
-    na, nb = a2.shape[0], muB.shape[0]
-    if a2.dim() != 1 or muB.dim() != 2:
-        raise ValueError("a2 must be (Na,) and muB (Nb, dof)")
-    dof = muB.shape[1]
-    if iva.shape != (na, dof) or ivmuA.shape != (na, dof):
-        raise ValueError(f"iva/ivmuA must be ({na}, {dof}); got "
+    if a2.dim() not in (1, 2) or muB.dim() != a2.dim() + 1:
+        raise ValueError("a2 must be ([B,] Na) and muB ([B,] Nb, dof)")
+    lead = tuple(a2.shape[:-1])
+    if tuple(muB.shape[:-2]) != lead:
+        raise ValueError(f"member axes differ: a2 {tuple(a2.shape)}, muB "
+                         f"{tuple(muB.shape)}")
+    na, nb, dof = a2.shape[-1], muB.shape[-2], muB.shape[-1]
+    if iva.shape != lead + (na, dof) or ivmuA.shape != lead + (na, dof):
+        raise ValueError(f"iva/ivmuA must be {lead + (na, dof)}; got "
                          f"{tuple(iva.shape)}, {tuple(ivmuA.shape)}")
-    if na == 0 or nb == 0:
+    if na == 0 or nb == 0 or 0 in lead:
         raise ValueError("empty mixture")
-    return na, nb, dof
+    return (lead[0] if lead else None), na, nb, dof
 
 
 def row_logsumexp_plain(a2, iva, ivmuA, muB,
                         max_elems: int = 1 << 26) -> torch.Tensor:
     """The same function in plain PyTorch: a logsumexp over column blocks
     of the expanded logW, combined with the kernel's (max, sum) rule and
-    the same 1e-30 floor on the sum."""
-    na, nb, _ = _check(a2, iva, ivmuA, muB)
-    cb = max(1, min(nb, max_elems // max(na, 1)))
+    the same 1e-30 floor on the sum.  A leading member axis is a batch
+    dimension of the same expressions."""
+    batch, na, nb, _ = _check(a2, iva, ivmuA, muB)
+    cb = max(1, min(nb, max_elems // max(na * (batch or 1), 1)))
     ms, ss = [], []
     for j in range(0, nb, cb):
-        b = muB[j:j + cb]
-        logw = -0.5 * (a2[:, None] + iva @ (b * b).T - 2.0 * (ivmuA @ b.T))
-        m = torch.max(logw, dim=1).values
+        b = muB[..., j:j + cb, :]
+        bt = b.transpose(-1, -2)
+        logw = -0.5 * (a2[..., None] + iva @ (bt * bt) - 2.0 * (ivmuA @ bt))
+        m = torch.max(logw, dim=-1).values
         ms.append(m)
-        ss.append(torch.sum(torch.exp(logw - m[:, None]), dim=1))
-    m_all = torch.stack(ms)                                   # (blocks, Na)
+        ss.append(torch.sum(torch.exp(logw - m[..., None]), dim=-1))
+    m_all = torch.stack(ms)                              # (blocks, [B,] Na)
     mx = torch.max(m_all, dim=0).values
     s = torch.sum(torch.stack(ss) * torch.exp(m_all - mx), dim=0)
     return mx + torch.log(torch.clamp(s, min=1e-30))
@@ -150,15 +161,16 @@ _MIN_SPLIT_COLS = 2048
 
 @functools.lru_cache(maxsize=1024)
 def split_plan(na: int, nb: int, rows_per_block: int, chunk_cols: int,
-               resident_blocks: int) -> tuple[int, int]:
+               resident_blocks: int, batch: int = 1) -> tuple[int, int]:
     """(splits, cols_per_split) of the kernel's grid.  Blocks run in waves
     of ``resident_blocks``; the plan takes the split count whose last wave
     is fullest, discounted by what each extra block costs.  Splits are
-    whole chunks, so only the matrix's last chunk is masked."""
+    whole chunks, so only the matrix's last chunk is masked.  A batch of
+    ``batch`` members has ``batch`` times the row blocks."""
     def ceil_div(a, b):
         return -(-a // b)
 
-    row_blocks = ceil_div(na, rows_per_block)
+    row_blocks = batch * ceil_div(na, rows_per_block)
     best = None
     for want in range(1, max(1, nb // _MIN_SPLIT_COLS) + 1):
         cols = ceil_div(ceil_div(nb, want), chunk_cols) * chunk_cols
@@ -188,7 +200,7 @@ def _grid_constants(device_index: int, dof: int) -> tuple[int, int, int]:
 
 
 def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
-    na, nb, dof = _check(a2, iva, ivmuA, muB)
+    batch, na, nb, dof = _check(a2, iva, ivmuA, muB)
     if dof > MAX_DOF:
         raise ValueError(f"row_logsumexp kernel supports dof <= {MAX_DOF}, "
                          f"got {dof}")
@@ -200,28 +212,35 @@ def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
     index = a2.device.index
     if index is None:
         index = torch.cuda.current_device()
-    splits, cols_per_split = split_plan(na, nb, *_grid_constants(index, dof))
-    part = torch.empty((2, splits, na), dtype=torch.float32,
+    b = batch or 1
+    if b > 65535:
+        raise ValueError(f"row_logsumexp kernel: a batch of {b} members "
+                         "exceeds the grid's z limit of 65535")
+    splits, cols_per_split = split_plan(na, nb, *_grid_constants(index, dof),
+                                        b)
+    part = torch.empty((2, b, splits, na), dtype=torch.float32,
                        device=a2.device)
-    out = torch.empty((na,), dtype=torch.float32, device=a2.device)
+    out = torch.empty(a2.shape, dtype=torch.float32, device=a2.device)
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     rc = lib.row_lse_launch(a2.data_ptr(), iva.data_ptr(), ivmuA.data_ptr(),
                             muB.data_ptr(), part[0].data_ptr(),
                             part[1].data_ptr(), out.data_ptr(), na, nb, dof,
-                            splits, cols_per_split, stream)
+                            splits, cols_per_split, b, stream)
     if rc != 0:
         raise RuntimeError(f"row_logsumexp kernel launch failed: CUDA error "
                            f"{rc}")
     counts["launches"] += 1
+    counts["problems"] += b
     return out
 
 
 def row_logsumexp(a2, iva, ivmuA, muB) -> torch.Tensor:
     """Row-logsumexp of logW = -0.5(a2 + iva·muB²ᵀ − 2 ivmuA·muBᵀ).
 
-    a2 (Na,), iva and ivmuA (Na, dof), muB (Nb, dof), float32 on one device.
-    A CUDA input runs the kernel (or raises); a CPU input the plain
-    version."""
+    a2 (Na,), iva and ivmuA (Na, dof), muB (Nb, dof), float32 on one
+    device, each with an optional leading member axis B (one launch for
+    all members; the result is then (B, Na)).  A CUDA input runs the
+    kernel (or raises); a CPU input the plain version."""
     counts["calls"] += 1
     if a2.device.type == "cuda":
         return _row_logsumexp_cuda(a2, iva, ivmuA, muB)
@@ -232,10 +251,10 @@ def row_logsumexp(a2, iva, ivmuA, muB) -> torch.Tensor:
 
 def pair_row_terms(muA, precA, muB, precB):
     """(a2, ivar, ivar⊙muA) of the pair-product weights.  Like the
-    reference, only ``precB[0]`` is read: in the cascade B's precisions
-    are one row broadcast over its kernels."""
-    pB0 = precB[0]
-    both = (precA > 0) & (pB0[None, :] > 0)
+    reference, only B's first precision row (of each member) is read: in
+    the cascade B's precisions are one row broadcast over its kernels."""
+    pB0 = precB[..., :1, :]
+    both = (precA > 0) & (pB0 > 0)
     ivar = torch.where(both, precA * pB0 / torch.clamp(precA + pB0,
                                                       min=1e-30),
                        torch.zeros((), dtype=precA.dtype,
@@ -246,7 +265,8 @@ def pair_row_terms(muA, precA, muB, precB):
 
 def pair_row_logsumexp(muA, precA, muB, precB) -> torch.Tensor:
     """Row log-partitions of the pair-product weights (inputs as in
-    ops/product.pair_product_tangent)."""
+    ops/product.pair_product_tangent, with an optional leading member
+    axis: ``muA (B, Na, d)`` ... give ``(B, Na)`` in one launch)."""
     a2, ivar, ivmuA = pair_row_terms(muA, precA, muB, precB)
     return row_logsumexp(a2.contiguous(), ivar.contiguous(),
                          ivmuA.contiguous(), muB.contiguous())

@@ -13,6 +13,11 @@ D-density product cascades D−1 such pair products.  Above
 streaming CUDA kernel (ops/kernels/row_lse.py) and the (Na, Nb) matrix is
 never built.  Index selections are plain indexing: the JAX package's
 one-hot matmuls were a TPU workaround and select the same values.
+
+The pair products and the cascade take a leading member axis (B
+independent problems of one shape, a sequence of B keys): each member
+draws from its own key, as it would alone, and on the large-pair path the
+row log-partitions of all members are one kernel launch.
 """
 
 from __future__ import annotations
@@ -67,35 +72,70 @@ def _combine(qA, sA, qB, sB):
     return mu, prec
 
 
+def _members(key, *ts):
+    """(keys, tensors with a leading member axis, batched?).  A sequence of
+    keys means the tensors carry a member axis, one key a member; an int
+    key means one problem, given the axis here."""
+    if isinstance(key, (list, tuple)):
+        if any(t.shape[0] != len(key) for t in ts):
+            raise ValueError(f"{len(key)} keys for member axes "
+                             f"{[tuple(t.shape) for t in ts]}")
+        return list(key), ts, True
+    return [key], tuple(t[None] for t in ts), False
+
+
+def _out(pairs, batched):
+    """Stack per-member (mu, prec) results, or unwrap the one member."""
+    if not batched:
+        return pairs[0]
+    return tuple(torch.stack(c) for c in zip(*pairs))
+
+
+def _take(x, idx):
+    """Rows ``idx`` (B, n) of each member of ``x`` (B, N, d)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
 def _pair_logW(muA, precA, muB, precB):
-    """Agreement log-weights in thin-matmul form.
+    """Agreement log-weights in thin-matmul form, with an optional leading
+    member axis.
 
     B always has one shared precision row in the cascade, so
     ivar = pA·pB/(pA+pB) depends only on (component of A, dim) and
     Σ_d ivar (a − b)² = Σ_d ivar a² + ivar·(b²)ᵀ − 2 (ivar⊙a)·bᵀ.
     Full float32 products (TF32 is off, see config.resolve_device)."""
-    pB0 = precB[0]
-    both = (precA > 0) & (pB0[None, :] > 0)
+    pB0 = precB[..., :1, :]
+    both = (precA > 0) & (pB0 > 0)
     ivar = torch.where(both, precA * pB0 / torch.clamp(precA + pB0,
                                                       min=1e-30),
                        torch.zeros_like(precA))
     a2 = torch.sum(ivar * muA * muA, dim=-1)
-    t2 = ivar @ (muB * muB).T
-    t3 = (ivar * muA) @ muB.T
-    return -0.5 * (a2[:, None] + t2 - 2.0 * t3)
+    muBt = muB.transpose(-1, -2)
+    t2 = ivar @ (muBt * muBt)
+    t3 = (ivar * muA) @ muBt
+    return -0.5 * (a2[..., None] + t2 - 2.0 * t3)
 
 
-def pair_product_tangent(muA, precA, muB, precB, key: int, n_out: int):
+def pair_product_tangent(muA, precA, muB, precB, key, n_out: int):
     """Exact product of two diagonal-Gaussian mixtures in tangent coords;
     ``precB`` shares one precision row.  Returns (mu, prec) of ``n_out``
     exactly drawn product components: the row by its log-partition, then
-    the column given the row."""
-    logW = _pair_logW(muA, precA, muB, precB)                # (Na, Nb)
-    k_row, k_col = _keys.split(key, 2)
-    row_ls = torch.logsumexp(logW, dim=1)
-    ia = _keys.categorical(k_row, row_ls, n_out)
-    ib = _keys.categorical_rows(k_col, logW[ia])
-    return _combine(precA[ia], muA[ia], precB[ib], muB[ib])
+    the column given the row.  With a sequence of keys the inputs carry a
+    leading member axis, each member drawing from its own key."""
+    keys, (muA, precA, muB, precB), batched = _members(key, muA, precA,
+                                                        muB, precB)
+    logW = _pair_logW(muA, precA, muB, precB)             # (B, Na, Nb)
+    row_ls = torch.logsumexp(logW, dim=-1)
+    ia, ib = [], []
+    for b, k in enumerate(keys):
+        k_row, k_col = _keys.split(k, 2)
+        i = _keys.categorical(k_row, row_ls[b], n_out)
+        ia.append(i)
+        ib.append(_keys.categorical_rows(k_col, logW[b][i]))
+    ia, ib = torch.stack(ia), torch.stack(ib)
+    mu, prec = _combine(_take(precA, ia), _take(muA, ia), _take(precB, ib),
+                        _take(muB, ib))
+    return (mu, prec) if batched else (mu[0], prec[0])
 
 
 def condense_mixture(mu, prec, key: int, k: int,
@@ -145,10 +185,18 @@ def condense_mixture(mu, prec, key: int, k: int,
     return mean, prec_c, logw
 
 
-def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key: int,
+def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key,
                                   n_out: int):
     """Exact pair product against a weighted mixture with per-component
-    precisions (the condensed form; Nb is the small cluster count)."""
+    precisions (the condensed form; Nb is the small cluster count).  With
+    a sequence of keys the inputs carry a leading member axis; the members
+    are solved one after another."""
+    keys, ts, batched = _members(key, muA, precA, muB, precB, logwB)
+    return _out([_weighted_one(*(t[b] for t in ts), k, n_out)
+                 for b, k in enumerate(keys)], batched)
+
+
+def _weighted_one(muA, precA, muB, precB, logwB, key: int, n_out: int):
     def logits_vs_B(mu_rows, prec_rows):
         pa, pb = prec_rows[:, None, :], precB[None, :, :]
         both = (pa > 0) & (pb > 0)
@@ -165,42 +213,54 @@ def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key: int,
     return _combine(qA, sA, precB[ib], muB[ib])
 
 
-def pair_product_tangent_large(muA, precA, muB, precB, key: int,
-                               n_out: int):
+def pair_product_tangent_large(muA, precA, muB, precB, key, n_out: int):
     """Large-N exact pair product that never builds the (Na, Nb) matrix:
     row log-partitions stream through the CUDA kernel (its plain version
     on the CPU), then the selected rows' weights are rebuilt in blocks of
-    ``_LARGE_SEL_BLOCK`` rows for the column draw."""
-    row_ls = pair_row_logsumexp(muA, precA, muB, precB)     # (Na,)
-    k_row, k_col = _keys.split(key, 2)
-    ia = _keys.categorical(k_row, row_ls, n_out)
+    ``_LARGE_SEL_BLOCK`` rows for the column draw.
 
+    With a sequence of keys the inputs carry a leading member axis: the
+    row log-partitions of every member are ONE kernel launch (the JAX
+    package's vmapped Pallas call), and the column draw stays blockwise
+    and per member, so peak memory does not grow with the batch."""
+    row_ls = pair_row_logsumexp(muA, precA, muB, precB)  # ([B,] Na)
+    keys, (muA, precA, muB, precB, row_ls), batched = _members(
+        key, muA, precA, muB, precB, row_ls)
     blk = min(_LARGE_SEL_BLOCK, n_out)
     nblk = -(-n_out // blk)
-    keys_b = _keys.split(k_col, nblk)
-    mus, precs = [], []
-    for b in range(nblk):
-        ia_blk = ia[b * blk:(b + 1) * blk]
-        muA_s, precA_s = muA[ia_blk], precA[ia_blk]
-        logW_rows = _pair_logW(muA_s, precA_s, muB, precB)  # (blk, Nb)
-        ib = _keys.categorical_rows(keys_b[b], logW_rows)
-        del logW_rows
-        mu, prec = _combine(precA_s, muA_s, precB[ib], muB[ib])
-        mus.append(mu)
-        precs.append(prec)
-    return torch.cat(mus), torch.cat(precs)
+    outs = []
+    for b, k in enumerate(keys):
+        k_row, k_col = _keys.split(k, 2)
+        ia = _keys.categorical(k_row, row_ls[b], n_out)
+        keys_b = _keys.split(k_col, nblk)
+        mus, precs = [], []
+        for j in range(nblk):
+            ia_blk = ia[j * blk:(j + 1) * blk]
+            muA_s, precA_s = muA[b][ia_blk], precA[b][ia_blk]
+            logW_rows = _pair_logW(muA_s, precA_s, muB[b], precB[b])
+            ib = _keys.categorical_rows(keys_b[j], logW_rows)
+            del logW_rows
+            mu, prec = _combine(precA_s, muA_s, precB[b][ib], muB[b][ib])
+            mus.append(mu)
+            precs.append(prec)
+        outs.append((torch.cat(mus), torch.cat(precs)))
+    return _out(outs, batched)
 
 
-def _pair_stage(mu, prec, mu_b, prec_b, key_pair: int, key_condense: int,
-                n_out: int):
-    """One stage of the cascade, routed as in the JAX package: condensed
-    when B is large but the pair count is not, streamed when the pair count
-    reaches ``LARGE_PAIR_THRESHOLD``, exact and materialised otherwise."""
-    nb = mu_b.shape[0]
-    pairs = mu.shape[0] * nb
+def _pair_stage(mu, prec, mu_b, prec_b, key_pair, key_condense, n_out: int):
+    """One stage of the cascade, routed as in the JAX package by the pair
+    count of one member: condensed when B is large but the pair count is
+    not, streamed when the pair count reaches ``LARGE_PAIR_THRESHOLD``,
+    exact and materialised otherwise.  Keys as in
+    :func:`pair_product_tangent`."""
+    nb = mu_b.shape[-2]
+    pairs = mu.shape[-2] * nb
     if nb >= CONDENSE_MIN_NB and pairs < LARGE_PAIR_THRESHOLD:
-        cB, pB, lwB = condense_mixture(mu_b, prec_b, key_condense,
-                                       k=min(CONDENSE_K, nb))
+        kc, ts, batched = _members(key_condense, mu_b, prec_b)
+        cond = [condense_mixture(m, p, k, k=min(CONDENSE_K, nb))
+                for m, p, k in zip(*ts, kc)]
+        cB, pB, lwB = (tuple(torch.stack(c) for c in zip(*cond)) if batched
+                       else cond[0])
         return pair_product_tangent_weighted(mu, prec, cB, pB, lwB,
                                              key_pair, n_out)
     if pairs >= LARGE_PAIR_THRESHOLD:
@@ -209,31 +269,47 @@ def _pair_stage(mu, prec, mu_b, prec_b, key_pair: int, key_condense: int,
     return pair_product_tangent(mu, prec, mu_b, prec_b, key_pair, n_out)
 
 
-def _final_draw(mu, prec, key: int):
-    """One draw inside each selected product component."""
-    noise = torch.randn(mu.shape, generator=_keys.generator(key, mu.device),
-                        device=mu.device, dtype=mu.dtype) \
+def _final_draw(mu, prec, key):
+    """One draw inside each selected product component; with a sequence
+    of keys, one per member of the leading axis."""
+    keys, (mu, prec), batched = _members(key, mu, prec)
+    noise = torch.stack([torch.randn(
+        mu.shape[1:], generator=_keys.generator(k, mu.device),
+        device=mu.device, dtype=mu.dtype) for k in keys]) \
         / torch.sqrt(torch.clamp(prec, min=1e-30))
-    return torch.where(prec > 0, mu + noise, torch.zeros_like(mu))
+    out = torch.where(prec > 0, mu + noise, torch.zeros_like(mu))
+    return out if batched else out[0]
 
 
-def product_cascade_tangent(tangs, precs, key: int, n_out: int):
+def _resample(mu, prec, keys, n_out: int):
+    """``n_out`` uniformly drawn rows of each member (B, N, d)."""
+    idx = torch.stack([torch.randint(
+        0, mu.shape[1], (n_out,), generator=_keys.generator(k, mu.device),
+        device=mu.device) for k in keys])
+    return _take(mu, idx), _take(prec, idx)
+
+
+def product_cascade_tangent(tangs, precs, key, n_out: int):
     """Cascade exact pairwise products over D densities.  tangs/precs:
-    lists of (N_j, dof).  Returns sampled points (n_out, dof) and the
+    lists of (N_j, dof), or of (B, N_j, dof) with a sequence of B keys.
+    Returns sampled points (n_out, dof) (or (B, n_out, dof)) and the
     per-dim total precision."""
-    ks = _keys.split(key, 2 * len(tangs))
+    keys, _, batched = _members(key, tangs[0])
+    if not batched:
+        tangs = [t[None] for t in tangs]
+        precs = [p[None] for p in precs]
+    ks = [_keys.split(k, 2 * len(tangs)) for k in keys]
     mu, prec = tangs[0], precs[0]
-    noise_key = ks[0]
-    if mu.shape[0] != n_out and len(tangs) == 1:
-        idx = torch.randint(0, mu.shape[0], (n_out,),
-                            generator=_keys.generator(ks[0], mu.device),
-                            device=mu.device)
-        mu, prec = mu[idx], prec[idx]
-        noise_key = _keys.split(ks[0], 1)[0]
+    noise_keys = [k[0] for k in ks]
+    if mu.shape[1] != n_out and len(tangs) == 1:
+        mu, prec = _resample(mu, prec, noise_keys, n_out)
+        noise_keys = [_keys.split(k, 1)[0] for k in noise_keys]
     for j in range(1, len(tangs)):
-        mu, prec = _pair_stage(mu, prec, tangs[j], precs[j], ks[j],
-                               ks[len(tangs) + j], n_out)
-    return _final_draw(mu, prec, noise_key), prec
+        mu, prec = _pair_stage(mu, prec, tangs[j], precs[j],
+                               [k[j] for k in ks],
+                               [k[len(tangs) + j] for k in ks], n_out)
+    out = _final_draw(mu, prec, noise_keys)
+    return (out, prec) if batched else (out[0], prec[0])
 
 
 def manifold_product(manifold: Manifold, proposals: Sequence[Proposal],

@@ -96,7 +96,7 @@ def _copy_frontals(fg: FactorGraph, sub: FactorGraph, clique) -> None:
 
 def solve_tree_parametric(fg: FactorGraph,
                           old_tree: Optional[BayesTree] = None,
-                          order=None) -> BayesTree:
+                          order=None, mesh=None) -> BayesTree:
     """Clique-wise parametric solve over the Bayes tree (reference
     solveTree!(...; algorithm=:parametric), SolverAPI.jl:423).
 
@@ -107,7 +107,9 @@ def solve_tree_parametric(fg: FactorGraph,
     That rests on factor models not being edited in place: an edited
     measurement under an unchanged label makes the recycled message stale,
     as it would in the reference (attemptTreeSimilarClique matches labels).
-    ``tree.param_batches`` lists the size of every batched LM call."""
+    ``tree.param_batches`` lists the size of every batched LM call.
+    ``mesh`` splits each batch over the mesh's devices
+    (``solve_problems_batched``)."""
     if any(fg.var(v).parametric_point is None for v in fg.ls()):
         init_parametric_from(fg, only_missing=True)
     if any(fg.var(v).parametric_point is None for v in fg.ls()):
@@ -138,7 +140,8 @@ def solve_tree_parametric(fg: FactorGraph,
                     _attach_message(sub, up_msgs[ch], "up")
             entries.append((cl, sub, ParametricProblem(sub)))
         res = solve_problems_batched([p for _, _, p in entries],
-                                     batch_sizes=tree.param_batches)
+                                     batch_sizes=tree.param_batches,
+                                     mesh=mesh)
         for (cl, sub, prob), (points, cov, _) in zip(entries, res):
             _finalize_clique(prob, sub, points, cov)
             msg = _marginal_message(prob, sub, cl)
@@ -162,7 +165,8 @@ def solve_tree_parametric(fg: FactorGraph,
             entries.append((cl, sub,
                             ParametricProblem(sub, frozen=cl.separator)))
         res = solve_problems_batched([p for _, _, p in entries],
-                                     batch_sizes=tree.param_batches)
+                                     batch_sizes=tree.param_batches,
+                                     mesh=mesh)
         for (cl, sub, prob), (points, cov, _) in zip(entries, res):
             _finalize_clique(prob, sub, points, cov)
             cl.status = CliqStatus.DOWNSOLVED

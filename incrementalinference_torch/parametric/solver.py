@@ -28,6 +28,7 @@ and MaxNullhypo).
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -36,8 +37,8 @@ from torch.func import jacfwd, vmap
 
 from ..beliefs import mean_cov as belief_mean_cov
 from ..graph import FactorGraph
-from ..models.factors import (MODEL_REGISTRY, GenericMarginal, MetaPrior,
-                              Mixture)
+from ..models.factors import (GenericMarginal, MetaPrior, Mixture,
+                              residual_at, stackable_residual_params)
 from ..ops.hypo import parse_multihypo
 
 __all__ = ["ParametricProblem", "solve_graph_parametric",
@@ -62,40 +63,6 @@ def _stack(xs, device) -> torch.Tensor:
 
 
 # -- what a factor group stacks ----------------------------------------------
-
-#: registered model fields that a residual does not read as a per-factor
-#: tensor: the measurement distribution feeds the stacked moments, and the
-#: rest is structure that the group key holds
-_NOT_READ_BY_RESIDUAL = frozenset({"Z", "manifold", "partial", "belief",
-                                   "ipc"})
-
-
-def _residual_params(model, device) -> tuple:
-    """The per-factor tensors the model's residual reads, which a group
-    stacks across its factors: a model's ``residual_params``, else none.
-    Raises for a model whose registered fields it does not know: using
-    the first factor's parameters for every factor would be wrong, and
-    nothing here loops factor by factor."""
-    if isinstance(model, Mixture):
-        return _residual_params(model.mechanics, device)
-    if hasattr(model, "residual_params"):
-        return model.residual_params(device)
-    entry = MODEL_REGISTRY.get(type(model).__name__)
-    if entry is None or entry[0] is not type(model) \
-            or not set(entry[1] + entry[2]) <= _NOT_READ_BY_RESIDUAL:
-        raise NotImplementedError(
-            f"the parametric solver cannot stack {type(model).__name__}: "
-            f"register it with fields among {sorted(_NOT_READ_BY_RESIDUAL)}")
-    return ()
-
-
-def _residual(model, params, meas, *points):
-    if isinstance(model, Mixture):
-        return _residual(model.mechanics, params, meas, *points)
-    if params:
-        return model.residual_with(params, meas, *points)
-    return model.residual(meas, *points)
-
 
 def _structure(model) -> tuple:
     """The non-tensor attributes the factors of one group share."""
@@ -268,7 +235,7 @@ class ParametricProblem:
             return torch.as_tensor(np.asarray(rows, np.int64), device=dev)
 
         slots = idx([[self._idx_in_type[v] for v in av] for _, av, _ in items])
-        per_factor = [_residual_params(f.model, dev) for f in fs]
+        per_factor = [stackable_residual_params(f.model, dev) for f in fs]
         params = tuple(torch.stack(c) for c in zip(*per_factor))
         mix = None
         if isinstance(model, Mixture):
@@ -393,7 +360,7 @@ class _Batch:
 
         if g.mix is None:
             def res(xl_f, params, meas, sqi, *base_f):
-                r = sqi @ _residual(model, params, meas,
+                r = sqi @ residual_at(model, params, meas,
                                     *points(xl_f, base_f))
                 return r, r
             args = (g.params, g.meas, g.sqrt_inv)
@@ -402,7 +369,7 @@ class _Batch:
                 pts = points(xl_f, base_f)
 
                 def comp(mu, sqi):
-                    return sqi @ _residual(model, params, mu, *pts)
+                    return sqi @ residual_at(model, params, mu, *pts)
 
                 rs = vmap(comp)(mus, sqis)                        # (C, z)
                 score = 0.5 * torch.sum(rs * rs, dim=-1) \
@@ -652,31 +619,89 @@ def _solve_batch(probs: Sequence[ParametricProblem], x0, max_iters: int,
     return out
 
 
+def _problem_on(prob: ParametricProblem, device) -> ParametricProblem:
+    """A shallow copy of ``prob`` whose tensors are on ``device`` (``prob``
+    itself when they are there)."""
+    if prob.free_mask.device == device:
+        return prob
+
+    def mv(x):
+        if x is None or isinstance(x, int):
+            return x
+        if isinstance(x, tuple):
+            return tuple(mv(e) for e in x)
+        return x.to(device)
+
+    out = copy.copy(prob)
+    out.groups = []
+    for g in prob.groups:
+        gc = copy.copy(g)
+        for name in ("params", "meas", "sqrt_inv", "slots", "brow", "mix",
+                     "hyp", "null_p"):
+            setattr(gc, name, mv(getattr(g, name)))
+        out.groups.append(gc)
+    out.p0 = [p.to(device) for p in prob.p0]
+    out.free_mask = prob.free_mask.to(device)
+    return out
+
+
+def _solve_on_mesh(batch: List[ParametricProblem], mesh, *args):
+    """A batch padded with copies of its first problem to a multiple of
+    the mesh, split into one contiguous chunk per device, each chunk one
+    batched solve there; results (and each problem's ``p0``) come back to
+    the first problem's device, the copies' dropped."""
+    home = batch[0].free_mask.device
+    per = len(mesh.devices)
+    padded = batch + [copy.copy(batch[0])
+                      for _ in range(-(-len(batch) // per) * per
+                                     - len(batch))]
+    chunk = len(padded) // per
+    out = []
+    for c, dev in enumerate(mesh.devices):
+        part = padded[c * chunk:(c + 1) * chunk]
+        moved = [_problem_on(q, dev) for q in part]
+        for q, m, (pts, cov, cost) in zip(part, moved,
+                                          _solve_batch(moved, None, *args)):
+            q.p0 = [p.to(home) for p in m.p0]
+            out.append(([p.to(home) for p in pts],
+                        None if cov is None else cov.to(home),
+                        cost.to(home)))
+    return out[:len(batch)]
+
+
 def solve_problems_batched(probs: Sequence[ParametricProblem],
                            max_iters: int = 50, relinearize: int = 2,
                            lam0: float = 1e-4, tol: float = 1e-8,
                            compute_cov: bool = True,
-                           batch_sizes: Optional[List[int]] = None):
+                           batch_sizes: Optional[List[int]] = None,
+                           mesh=None):
     """Solve many problems, those of one signature as one batch (the
     reference runs one task per clique, ParametricCSMFunctions.jl).
     Returns ``[(points, cov or None, cost), ...]`` aligned with ``probs``
     and updates each problem's ``p0`` as ``ParametricProblem.solve`` does.
-    ``batch_sizes``, where given, receives the size of each batch."""
+    ``batch_sizes``, where given, receives the size of each batch.
+
+    ``mesh`` (parallel/mesh.py): every batch, a single problem too, is
+    padded to a multiple of the mesh and split over its devices (the JAX
+    package shards the batch axis, jl_tpu/parametric/solver.py:853-890);
+    each member still gets the result it would get alone."""
     by_sig: Dict[tuple, List[int]] = {}
     for i, p in enumerate(probs):
         by_sig.setdefault(p.signature(), []).append(i)
     results: List = [None] * len(probs)
+    args = (max_iters, relinearize, lam0, tol, compute_cov)
     for idxs in by_sig.values():
         if batch_sizes is not None:
             batch_sizes.append(len(idxs))
-        if len(idxs) == 1:
+        if len(idxs) == 1 and mesh is None:
             results[idxs[0]] = probs[idxs[0]].solve(
                 max_iters=max_iters, relinearize=relinearize, lam0=lam0,
                 tol=tol, compute_cov=compute_cov)
             continue
-        batch = _solve_batch([probs[i] for i in idxs], None, max_iters,
-                             relinearize, lam0, tol, compute_cov)
-        for i, res in zip(idxs, batch):
+        batch = [probs[i] for i in idxs]
+        out = (_solve_batch(batch, None, *args) if mesh is None
+               else _solve_on_mesh(batch, mesh, *args))
+        for i, res in zip(idxs, out):
             results[i] = res
     return results
 

@@ -44,7 +44,9 @@ def test_two_var_solve_through_the_large_pair_path(monkeypatch):
     seen = []
 
     def recording(muA, precA, muB, precB):
-        seen.append(bool(torch.all(precB == precB[0])))
+        # each member's B rows against its own first row (the product
+        # calls it with a member axis, here a batch of one)
+        seen.append(bool(torch.all(precB == precB[..., :1, :])))
         return row_lse.pair_row_logsumexp(muA, precA, muB, precB)
 
     monkeypatch.setattr(tp, "pair_row_logsumexp", recording)
