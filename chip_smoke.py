@@ -82,6 +82,24 @@ Phases (any failure exits non-zero before the result line; none is caught):
    "cliques" and "auto" and for the parametric tree solve, at the bars of
    tests/test_multichip*.py; dryrun_multichip(1), entry() and the Kaess
    solve with precompile=True;
+   Then the multi-process tree solve (phase_multihost, budget 150 s):
+   fifty scans of keys.cdf and ten row draws of keys.categorical from one
+   key over 50,000 logits are equal; two processes share the card (collectives over gloo on host
+   bytes: NCCL refuses two ranks on one GPU) and solve the anchored forest
+   of parallel/multihost.py (an anchor and 4 branches of 3) at N = 50,000
+   cold and warm through launch_multihost, each launching the kernel; the
+   same fixture in this process through solve_tree_multihost (no process
+   group: the partition owns everything, no top) and solve_tree with
+   batch_cliques=False; the bars of tests/test_multihost.py:244-261 (each
+   process's max |mean - truth| under max(1, 3 x the one-process error),
+   the processes' posteriors within 1e-6), the warm solve's launch
+   identity p0 + p1 = one process + the top (the top's count equal in
+   both), the kernel against its plain version on the inputs the solve
+   handed it; per process the phase walls, cut and sync bytes, the
+   collectives and their latency at 8 B and 16 kB; then at N = 64 the
+   fault flood (both processes end in "error" within 200 s) and the
+   parametric variant (max error < 0.35, the processes within 1e-6, no
+   launch);
 7. time the kernel, its plain version and one library route
    (torch.addmm-built logW + torch.logsumexp) at 50k x 50k, dof 1, the
    same three on the inputs the SE(2), SE(3) and heatmap (dof 2) solves
@@ -1451,6 +1469,231 @@ def phase_batched(it, K, dev):
     return launches, problems, kernel
 
 
+def _mh_single(it, mh, K, dev, scale, params, solve):
+    """One solve of the anchored forest in this process: (wall, counts of
+    the kernel's wrapper, |mean - truth| per variable)."""
+    truth = mh.fixture_truth("anchored_forest", scale)
+    fg = mh.build_fixture("anchored_forest", scale, params=params,
+                          device=dev)
+    K.reset_counts()
+    _sync(dev)
+    t0 = time.time()
+    solve(fg)
+    _sync(dev)
+    wall = time.time() - t0
+    counts = dict(K.counts)
+    errs = {v: abs(float(fg.points(v)[:, 0].mean()) - mu)
+            for v, mu in truth.items()}
+    for v in truth:
+        check(bool(torch.isfinite(fg.points(v)).all()),
+              f"anchored forest {v}: non-finite particles")
+    return wall, counts, errs
+
+
+def _categorical_repeats(dev, n):
+    """The replicated top is bit-identical in every process only if every
+    draw is: keys.cdf fifty times over n probabilities, and keys.categorical
+    ten times from one key, each equal bit for bit.  Beside it, what one
+    whole-tensor torch.cumsum gives over the same fifty runs (the port does
+    not use it), and the times of the two scans and of a host round trip."""
+    from incrementalinference_torch import keys
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    logits = 3.0 * torch.randn(n, generator=gen, device=dev)
+    p = torch.softmax(logits, dim=0)
+    cdfs = [keys.cdf(p) for _ in range(50)]
+    check(all(torch.equal(c, cdfs[0]) for c in cdfs),
+          "keys.cdf: fifty scans of one input differ")
+    draws = [keys.categorical(keys.make_key(9, 1), logits, n)
+             for _ in range(10)]
+    check(all(torch.equal(d, draws[0]) for d in draws),
+          "keys.categorical: ten draws from one key differ")
+    whole = len({torch.cumsum(p, dim=0).cpu().numpy().tobytes()
+                 for _ in range(50)})
+    ms = {"keys.cdf": cuda_ms(lambda: keys.cdf(p), 50),
+          "torch.cumsum": cuda_ms(lambda: torch.cumsum(p, dim=0), 50),
+          "host round trip": cuda_ms(
+              lambda: torch.cumsum(p.cpu(), dim=0).to(dev), 50)}
+    print(f"PASS keys.cdf over {n}: 50 scans bit-equal, ten draws of one key "
+          f"equal; a whole-tensor torch.cumsum gave {whole} distinct "
+          f"result(s) in 50 runs; median ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+
+
+def phase_multihost(it, K, dev):
+    """Slice 8b on the card (budget 150 s): two processes share the card
+    and solve the anchored forest (an anchor and 4 branches of three) at
+    N = 50,000 particles through parallel/multihost.py, their collectives
+    over gloo on host bytes (NCCL refuses two ranks on one device);
+    against the same fixture solved in this process by
+    solve_tree_multihost (no process group: the partition owns everything
+    and there is no top) and by solve_tree with batch_cliques=False.  Bars
+    of tests/test_multihost.py:244-261: each process's max |mean - truth|
+    under max(1, 3 x the one-process error), the processes within 1e-6 of
+    each other, every process launching the kernel; and the launch
+    identity of the warm solve, p0 + p1 = one process + the top (the top
+    is solved by both, the same count in each).  Then, at N=64, the fault
+    flood (both processes end in "error" within 200 s) and the parametric
+    variant (max error < 0.35, the processes within 1e-6, no launch), on
+    the card too.  Returns the launches by path."""
+    from incrementalinference_torch.ops import product
+    from incrementalinference_torch.parallel import multihost as mh
+
+    N, scale = 50_000, 4
+    t_phase = time.time()
+    check(N * N >= product.LARGE_PAIR_THRESHOLD,
+          f"multihost: N={N} no longer exceeds the large-pair threshold")
+    truth = mh.fixture_truth("anchored_forest", scale)
+    torch.cuda.empty_cache()
+    _categorical_repeats(dev, N)
+
+    t0 = time.time()
+    reps = mh.launch_multihost(2, "anchored_forest", scale=scale, N=N,
+                               devices_per_proc=1, device=str(dev),
+                               timeout=600)
+    launch_wall = time.time() - t0
+    reps.sort(key=lambda r: r["pid"])
+    check([r["pid"] for r in reps] == [0, 1], "multihost: two reports")
+
+    # the same fixture in this process, recording what the solve hands the
+    # kernel's wrapper (held against the plain version below)
+    handed = []
+    wrapper = product.pair_row_logsumexp
+
+    def recording(muA, precA, muB, precB):
+        handed[:] = _one_member(muA, precA, muB, precB)
+        return wrapper(muA, precA, muB, precB)
+
+    product.pair_row_logsumexp = recording
+    try:
+        w_mh, c_mh, errs = _mh_single(it, mh, K, dev, scale,
+                                      it.SolverParams(N=N),
+                                      mh.solve_tree_multihost)
+    finally:
+        product.pair_row_logsumexp = wrapper
+    w_st, c_st, errs_st = _mh_single(
+        it, mh, K, dev, scale, it.SolverParams(N=N, batch_cliques=False),
+        it.solve_tree)
+    single = max(errs.values())
+    bar = max(1.0, 3.0 * single)
+    print(f"PASS anchored forest N={N} ({len(truth)} variables) in this "
+          f"process: solve_tree_multihost {w_mh:.3f} s, "
+          f"{c_mh['launches']} launches, max err {single:.4f}; "
+          f"solve_tree(batch_cliques=False) {w_st:.3f} s, "
+          f"{c_st['launches']} launches, max err "
+          f"{max(errs_st.values()):.4f}", flush=True)
+    check(c_mh["launches"] > 0,
+          "the one-process multihost solve launched no kernel")
+
+    for r in reps:
+        for phase in ("cold", "warm"):
+            rp = r[phase]
+            tm = rp["timings"]
+            check(rp["max_err"] < bar, f"multihost p{r['pid']} {phase}: "
+                  f"max err {rp['max_err']} over the bar {bar}")
+            check(sum(tm["kernel_launches"].values()) > 0,
+                  f"multihost p{r['pid']} {phase}: no kernel launch")
+            check(r["device"].startswith("cuda"),
+                  f"multihost p{r['pid']} ran on {r['device']}")
+            print(f"multihost p{r['pid']} {phase}: total {tm['total_s']:.3f}"
+                  f" s (local up {tm['local_up_s']:.3f}, exchange "
+                  f"{tm['exchange_up_s']:.4f}, top {tm['top_s']:.3f}, local "
+                  f"down {tm['local_down_s']:.3f}, sync {tm['sync_s']:.4f});"
+                  f" {tm['local_cliques']} local cliques, {tm['init_passes']}"
+                  f" init pass(es); bytes cut {tm.get('bytes_cut')}, sync "
+                  f"{tm.get('bytes_sync')}; collectives "
+                  f"{rp['collectives']['count']} in "
+                  f"{rp['collectives']['wall_s']:.4f} s; kernel launches "
+                  f"{tm['kernel_launches']}; max err {rp['max_err']:.4f}",
+                  flush=True)
+        print(f"multihost p{r['pid']} collective latency (median of 20): "
+              f"8 B {r['collective_latency_s']['8B'] * 1e3:.3f} ms, 16 kB "
+              f"{r['collective_latency_s']['16kB'] * 1e3:.3f} ms",
+              flush=True)
+    for phase in ("cold", "warm"):
+        diff = abs(reps[0][phase]["max_err"] - reps[1][phase]["max_err"])
+        check(diff < 1e-6, f"multihost {phase}: the processes' max errors "
+                           f"differ by {diff}")
+    for v, m in reps[0]["warm"]["means"].items():
+        check(abs(m - reps[1]["warm"]["means"][v]) < 1e-6,
+              f"multihost warm {v}: the processes' means differ")
+
+    # the launch identity of the warm solve
+    per = [reps[i]["warm"]["timings"]["kernel_launches"] for i in (0, 1)]
+    top = [p["top"] for p in per]
+    check(top[0] == top[1], f"multihost: the top's launches differ between "
+                            f"the processes: {top}")
+    both = sum(sum(p.values()) for p in per)
+    one = c_mh["launches"]
+    check(both == one + top[0],
+          f"multihost: p0 + p1 = {both} launches, one process {one} + the "
+          f"top {top[0]} = {one + top[0]}")
+    print(f"PASS two processes on one card solve the "
+          f"anchored forest N={N} at the bars of tests/test_multihost.py "
+          f"(bar {bar:.3f}; max errs warm {reps[0]['warm']['max_err']:.4f},"
+          f" {reps[1]['warm']['max_err']:.4f}); warm launches: p0 "
+          f"{per[0]}, p1 {per[1]}, sum {both} = one process {one} + top "
+          f"{top[0]}; launch wall {launch_wall:.1f} s", flush=True)
+
+    check(handed, "multihost: the kernel was handed nothing")
+    if handed:
+        a2, iva, ivm = K.pair_row_terms(*handed)
+        muB = handed[2].contiguous()
+        got = K.row_logsumexp(a2.contiguous(), iva.contiguous(),
+                              ivm.contiguous(), muB)
+        ref = K.row_logsumexp_plain(a2, iva, ivm, muB)
+        rel = rel_err(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= _TOL,
+              f"multihost: kernel vs plain on the solve's inputs, rel err "
+              f"{rel:.3e}")
+        print(f"PASS kernel vs plain on the inputs the anchored forest's "
+              f"solve handed it ({muB.shape[0]} x {muB.shape[0]}, dof "
+              f"{muB.shape[1]}): rel err {rel:.3e}", flush=True)
+
+    # two small checks at N=64
+    fg = mh.build_fixture("anchored_forest", 6, device=dev)
+    from incrementalinference_torch.graphinit import ensure_solvable, init_all
+    ensure_solvable(fg)
+    init_all(fg)
+    part = mh.partition_tree(it.build_tree_reset(fg), 2)
+    victim = next(c for c in part.cut_roots if part.owner[c] == 0)
+    t0 = time.time()
+    reps_f = mh.launch_multihost(2, "anchored_forest", scale=6,
+                                 devices_per_proc=1, timeout=200,
+                                 fail_clique=victim, device=str(dev))
+    flood = time.time() - t0
+    outcomes = {r["pid"]: r["fault"]["outcome"] for r in reps_f}
+    check(outcomes == {0: "error", 1: "error"} and flood < 200,
+          f"multihost fault flood: {outcomes} in {flood:.1f} s")
+    t0 = time.time()
+    reps_p = mh.launch_multihost(2, "anchored_forest", scale=6,
+                                 devices_per_proc=1, timeout=300,
+                                 algorithm="parametric",
+                                 device=str(dev))
+    param_wall = time.time() - t0
+    for r in reps_p:
+        check(r["warm"]["max_err"] < 0.35,
+              f"multihost parametric p{r['pid']}: {r['warm']['max_err']}")
+        check(sum(r["cold"]["timings"]["kernel_launches"].values()) == 0
+              and sum(r["warm"]["timings"]["kernel_launches"].values()) == 0,
+              "multihost parametric launched the kernel")
+    check(abs(reps_p[0]["warm"]["max_err"] - reps_p[1]["warm"]["max_err"])
+          < 1e-6, "multihost parametric: the processes differ")
+    print(f"PASS multihost at N=64 on the card: fault at clique {victim} "
+          f"flooded both processes to 'error' in {flood:.1f} s; parametric "
+          f"max err {reps_p[0]['warm']['max_err']:.4f}, "
+          f"{reps_p[1]['warm']['max_err']:.4f}, no launch ({param_wall:.1f}"
+          f" s)", flush=True)
+    print(f"# phase_multihost: {time.time() - t_phase:.1f} s", flush=True)
+    return {f"multihost anchored forest N={N}, 2 processes, warm solve "
+            f"(p0, p1; the top {top[0]} in each)":
+                [sum(p.values()) for p in per],
+            f"multihost anchored forest N={N}, one process "
+            f"(solve_tree_multihost; solve_tree per clique)":
+                [one, c_st["launches"]]}
+
+
 def timing_inputs(K, n, dof, dev):
     """Row terms shaped like the solve's products: unit-scale particles,
     bandwidth ~ 0.3."""
@@ -2078,6 +2321,7 @@ def main() -> int:
     b_launches, b_problems, batched = phase_batched(it, K, dev)
     by_path["batched level: forest of 8 two-variable branches N=50000, "
             f"one warm solve ({b_problems} problems)"] = b_launches
+    by_path.update(phase_multihost(it, K, dev))
     by_path["parametric LineStep(1000), dense and cg"] = \
         phase_param_linestep(it, K, dev)
     by_path["parametric SE(3) chain of 60, autoinit and solves"] = \

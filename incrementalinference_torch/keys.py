@@ -55,14 +55,42 @@ def spawn(gen: torch.Generator, n: int) -> List[torch.Generator]:
     return [generator(k, gen.device) for k in kids]
 
 
+#: the CDF's row width: a categorical over K components is scanned as
+#: rows of this many (at least two rows), then the rows' totals
+CDF_ROW = 1024
+
+
+def cdf(p: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of the 1-D ``p``, in an order fixed by its
+    length alone on every device.
+
+    ``torch.cumsum`` over a whole 1-D CUDA tensor is one CUB scan whose
+    carries between tiles depend on the tiles' timing, so two runs (two
+    processes solving the same clique) may differ in the last bit.  Here
+    ``p`` is scanned as rows of ``CDF_ROW`` (a scan within each row of a
+    2-D tensor), and the rows' totals by a scan down the rows of a
+    (rows, 2) tensor, one thread a column in sequence on CUDA; neither is
+    the whole-tensor scan.  Each row's end is then exactly the running
+    total of the rows, so the CDF never decreases."""
+    k = p.shape[0]
+    rows = max(2, -(-k // CDF_ROW))
+    within = torch.cumsum(torch.nn.functional.pad(
+        p, (0, rows * CDF_ROW - k)).view(rows, CDF_ROW), dim=1)
+    ends = torch.cumsum(within[:, -1:].expand(rows, 2).contiguous(),
+                        dim=0)[:, 0]
+    before = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return (within + before[:, None]).reshape(-1)[:k]
+
+
 def categorical(key: int, logits: torch.Tensor, n: int) -> torch.Tensor:
     """``n`` draws from the categorical with 1-D ``logits`` (inverse CDF:
-    one uniform per draw, no (n, K) matrix — K is 50k on the large path)."""
-    p = torch.softmax(logits, dim=0)
-    cdf = torch.cumsum(p, dim=0)
+    one uniform per draw, no (n, K) matrix — K is 50k on the large path).
+    The CDF is :func:`cdf`'s, so processes that solve the same clique on
+    one device draw the same components."""
+    c = cdf(torch.softmax(logits, dim=0))
     u = torch.rand(n, generator=generator(key, logits.device),
-                   device=logits.device, dtype=logits.dtype) * cdf[-1]
-    return torch.searchsorted(cdf, u, right=True).clamp_(
+                   device=logits.device, dtype=logits.dtype) * c[-1]
+    return torch.searchsorted(c, u, right=True).clamp_(
         max=logits.shape[0] - 1)
 
 

@@ -7,8 +7,8 @@ queues for the slices still to port, so that the roadmap's count cannot
 drift from the code.  Since slice 9b that list is empty: every public name
 of the JAX package has a counterpart in the port.  The same holds, since
 slice 8a, for the names of ``parallel/`` (its ``__init__``, ``mesh`` and
-``precompile``); ``parallel/multihost.py``'s names are ROADMAP.md's
-slice-8b queue."""
+``precompile``) and, since slice 8b, of ``parallel/multihost.py``, whose
+missing names ROADMAP.md's slice-8b block lists (none)."""
 
 import ast
 import os
@@ -121,9 +121,11 @@ def _slice_8b_queue():
 
 def test_multihost_names_are_the_slice_8b_queue():
     """parallel/multihost.py's names that the port lacks are exactly the
-    list ROADMAP.md queues for slice 8b."""
+    list ROADMAP.md queues for slice 8b, and since slice 8b that list is
+    empty."""
     jax_mod = _parallel("incrementalinference/jl_tpu", "multihost.py")
     missing = ((_all_of(jax_mod) | _public_defs(jax_mod))
                - _module_names(_parallel("incrementalinference_torch",
                                          "multihost.py")))
     assert missing == _slice_8b_queue(), sorted(missing)
+    assert not missing, sorted(missing)
