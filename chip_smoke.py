@@ -8,8 +8,10 @@ Usage, from the root of the repository, on a machine with an H100:
 Phases (any failure exits non-zero before the result line; none is caught):
 1. build the row-logsumexp CUDA kernel from ops/kernels/csrc/row_lse.cu,
    check that the native elimination ordering built (without it the tree,
-   and so the walls, would be those of the Python heuristic), and count
-   the instruction slots per pair of the kernel's inner loop in its SASS;
+   and so the walls, would be those of the Python heuristic), print the
+   seconds of each compiler run (nvcc, g++; "cached" where the
+   content-addressed library existed), and count the instruction slots
+   per pair of the kernel's inner loop in its SASS;
 2. hold the kernel against its plain PyTorch version on the card, at the
    reference's check points (n, dof) of benchmarks/pallas_tpu_check.py, a
    zero-precision partial-dims case, n = 65536, the N = 50k solve's shape,
@@ -26,6 +28,17 @@ Phases (any failure exits non-zero before the result line; none is caught):
    benchmarks/pallas_e2e_solve.py through ``solve_tree`` on CUDA: every
    two-proposal product is 50k x 50k pairs and goes through the kernel
    (its launch count must grow); bars |mean - mu| < 0.2, 0.4 < std < 1.5;
+   Then the warm start (phase_warmstart, budget 90 s): the pack written
+   from phase 1's libraries; two fresh processes, one after the other, on
+   a copy of the package without build directories solve phases 3 and
+   4's graphs at their bars: one seeds from the pack (2 hits, no miss, no
+   compiler run), the other from a pack whose only entry is a kernel
+   carrying another source's digest, never looked up (both compilers run,
+   2 misses); their walls from launch side by side. condense_mixture
+   (phase_condense): 50 runs at N = 20,000, dof 1 and 3, k = 256,
+   bit-equal, timed beside the index_add_ form it replaced; the
+   two-variable graph at N = 4,096 through the condensed product stages
+   at phase 4's bars;
 5. the multimodal, incremental solve: the fourdoor story (a four-mode
    Mixture prior seen three times along a chain; build, solve, grow,
    re-solve with ``old_tree``) at N = 100 and at N = 50,000, where its
@@ -138,6 +151,8 @@ JSON object of per-kernel numbers (with the batched launch's under
 """
 
 import collections
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -146,6 +161,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -407,8 +423,8 @@ def phase_linestep(it, K):
     return walls
 
 
-def _two_var_graph(it, N):
-    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device="cuda")
+def _two_var_graph(it, N, device="cuda"):
+    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device=device)
     fg.add_variable("x0", it.ContinuousScalar)
     fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 1.0)))
     fg.add_variable("x1", it.ContinuousScalar)
@@ -452,6 +468,279 @@ def phase_large(it, K):
           f"{walls[0]:.3f} s, warm {walls[1]:.3f} s; launches per solve "
           f"{launches}; posteriors (mean, std) {stats}", flush=True)
     return walls, launches[-1]
+
+
+# The fresh process of phase_warmstart: seeds from its copy's pack, counts
+# the loaders' hits and misses, and solves phases 3 and 4's graphs.  Its
+# walls run from the parent's clock reading just before the launch.
+_WARM_CHILD = r"""
+import json, os, sys, time
+t_launch = float(sys.argv[1])
+import torch
+import incrementalinference_torch as it
+from incrementalinference_torch import native, warmstart
+from incrementalinference_torch.ops.kernels import row_lse as K
+
+report = {}
+out = {"package": os.path.dirname(os.path.abspath(it.__file__)),
+       "seeded": warmstart.seed_cache(report=report), "report": report}
+counts = warmstart.install_hit_counter()
+out["ready_s"] = time.time() - t_launch
+K.reset_counts()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+out["context_s"] = time.time() - t_launch
+fg = it.generate_line_step(20, graphinit=True, device="cuda")
+torch.cuda.synchronize()
+out["linestep_graph_s"] = time.time() - t_launch
+it.solve_tree(fg)
+torch.cuda.synchronize()
+out["linestep_s"] = time.time() - t_launch
+out["linestep_means"] = {i: float(fg.points(f"x{i}").mean())
+                         for i in range(0, 21, 2)}
+fg = it.initfg(it.SolverParams(N=50_000, batch_cliques=False),
+               device="cuda")
+fg.add_variable("x0", it.ContinuousScalar)
+fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 1.0)))
+fg.add_variable("x1", it.ContinuousScalar)
+fg.add_factor(["x0", "x1"], it.LinearRelative(it.Normal(10.0, 1.0)))
+fg.add_factor(["x1"], it.Prior(it.Normal(10.0, 1.0)))
+torch.cuda.synchronize()
+out["two_var_graph_s"] = time.time() - t_launch
+it.solve_tree(fg)
+torch.cuda.synchronize()
+out["two_var_s"] = time.time() - t_launch
+out["two_var"] = {v: [float(fg.points(v)[:, 0].mean()),
+                      float(fg.points(v)[:, 0].std())]
+                  for v in ("x0", "x1")}
+out["launches"] = K.counts["launches"]
+out["build_seconds"] = [K.build_seconds, native.build_seconds]
+out["kernel_path"] = K.LIBRARY.path()
+out["kernel_dir"] = sorted(os.listdir(K.LIBRARY.build_dir))
+out["counts"] = counts
+print(json.dumps(out))
+"""
+
+
+def _warm_child(root):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t_launch = time.time()
+    r = subprocess.run([sys.executable, "-c", _WARM_CHILD, repr(t_launch)],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0, f"warm-start process failed:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    check(res["package"] == os.path.join(root, "incrementalinference_torch"),
+          f"the warm-start process imported {res['package']}")
+    check(res["launches"] > 0,
+          "warm start: the N=50k solve never launched the kernel")
+    for i, m in res["linestep_means"].items():
+        check(abs(m - int(i)) < 1.5, f"warm LineStep x{i}: mean {m}")
+    for v, mu in (("x0", 0.0), ("x1", 10.0)):
+        mean, std = res["two_var"][v]
+        check(abs(mean - mu) < 0.2 and 0.4 < std < 1.5,
+              f"warm N=50000 {v}: {res['two_var'][v]}")
+    return res
+
+
+def _mismatch_pack(pack, kernel, ordering, root):
+    """Leave in ``pack`` only the kernel's entry, renamed to the name a
+    build of another source would carry, file and manifest; returns it."""
+    edited = os.path.join(root, "row_lse.cu")
+    shutil.copyfile(kernel.src, edited)
+    with open(edited, "a") as fp:
+        fp.write("// another source\n")
+    other = os.path.basename(dataclasses.replace(kernel, src=edited).path())
+    name = os.path.basename(kernel.path())
+    os.rename(os.path.join(pack, name), os.path.join(pack, other))
+    os.remove(os.path.join(pack, os.path.basename(ordering.path())))
+    with open(os.path.join(pack, "MANIFEST.json")) as fp:
+        man = json.load(fp)
+    entry = man["entries"].pop(name)
+    with open(edited, "rb") as fp:
+        entry["source_sha256"] = hashlib.sha256(fp.read()).hexdigest()
+    man["entries"] = {other: entry}
+    man["n_entries"] = 1
+    with open(os.path.join(pack, "MANIFEST.json"), "w") as fp:
+        json.dump(man, fp)
+    return other
+
+
+def phase_warmstart(it, K):
+    """The port's warm start (budget 90 s), an A/B of two fresh processes on
+    a copy of the package without its build directories, one after the
+    other.  The pack is written from the libraries phase 1 built (no second
+    compiler run in this process).  A: the copy seeds from the pack and
+    solves LineStep(20) at N = 100 and the two-variable graph at N = 50,000
+    on the card at the bars of phases 3 and 4; both libraries load from the
+    seeded files (2 hits, 0 misses, no compiler run) and the kernel
+    launches.  B: the same, from empty build directories and a pack that
+    holds only a kernel entry carrying another source's digest (file and
+    manifest renamed by hand): that entry is seeded and never looked up,
+    so both compilers run (0 hits, 2 misses).  Each process's walls run
+    from its launch to the end of each first solve; A's against B's is
+    what the pack saves a fresh process."""
+    from incrementalinference_torch import native, warmstart
+
+    t_phase = time.time()
+    here = os.path.dirname(os.path.abspath(it.__file__))
+    pack = os.path.join(here, "aotcache", warmstart._PACKS["cuda"])
+    built = [K.LIBRARY.path(), native.LIBRARY.path()]
+    for path in built:
+        check(os.path.exists(path), f"phase 1 left no {path}")
+    warmstart.write_pack(pack, built)
+    root = tempfile.mkdtemp(prefix="iitpu-warmstart-")
+    try:
+        pkg = os.path.join(root, "incrementalinference_torch")
+        shutil.copytree(here, pkg, ignore=shutil.ignore_patterns(
+            "build", "__pycache__"))
+        builds = [os.path.join(pkg, "native", "build"),
+                  os.path.join(pkg, "ops", "kernels", "build")]
+        check(not any(map(os.path.exists, builds)),
+              "the copied package holds a build directory")
+        a = _warm_child(root)
+        check(a["report"] == {"copied": 2, "present": 0,
+                              "pack_entries": 2, "version_match": True},
+              f"warm start: seed report {a['report']}")
+        check(a["counts"] == {"hits": 2, "misses": 0},
+              f"warm start: loads {a['counts']} (want 2 hits, no miss)")
+        check(a["build_seconds"] == [None, None],
+              f"warm start: a compiler ran: {a['build_seconds']}")
+
+        for d in builds:
+            shutil.rmtree(d, ignore_errors=True)
+        other = _mismatch_pack(
+            os.path.join(pkg, "aotcache", warmstart._PACKS["cuda"]),
+            K.LIBRARY, native.LIBRARY, root)
+        b = _warm_child(root)
+        name = os.path.basename(built[0])
+        check(b["report"]["copied"] == 1 and other in b["kernel_dir"],
+              f"mismatched pack not seeded: {b['report']}, "
+              f"{b['kernel_dir']}")
+        check(os.path.basename(b["kernel_path"]) == name,
+              f"the kernel loaded from {b['kernel_path']}, not {name}")
+        check(b["counts"] == {"hits": 0, "misses": 2}
+              and None not in b["build_seconds"],
+              f"unseeded: loads {b['counts']}, compiler seconds "
+              f"{b['build_seconds']} (want both compilers to run)")
+        walls = [(label, a[key], b[key]) for label, key in (
+            ("imported and seeded", "ready_s"),
+            ("CUDA context", "context_s"),
+            ("LineStep(20) N=100 built", "linestep_graph_s"),
+            ("solved", "linestep_s"),
+            ("two-variable N=50000 built", "two_var_graph_s"),
+            ("solved", "two_var_s"))]
+        print(f"PASS warm start: two fresh processes, from launch (s), "
+              f"seeded (2 hits, 0 misses, no compiler) | unseeded (0 hits, "
+              f"2 misses: nvcc {b['build_seconds'][0]:.3f} s, g++ "
+              f"{b['build_seconds'][1]:.3f} s): "
+              + ", ".join(f"{w} {x:.3f} | {y:.3f}" for w, x, y in walls)
+              + f"; launches {a['launches']} | {b['launches']}; the pack "
+              f"saved {b['two_var_s'] - a['two_var_s']:.3f} s to the end "
+              f"of the first N=50k solve", flush=True)
+        print(f"PASS warm start, mismatched kernel entry ({other}): seeded, "
+              f"never looked up; the unseeded process built and loaded "
+              f"{name}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    dt = time.time() - t_phase
+    check(dt < 90, f"phase_warmstart took {dt:.1f} s (budget 90 s)")
+    print(f"# phase_warmstart: {dt:.1f} s", flush=True)
+    return a, b
+
+
+def _condense_index_add(mu, prec, k, iters):
+    """condense_mixture as the port wrote it before its cluster sums became
+    one-hot products: scatter-adds by ``index_add_``, which add with
+    atomics on CUDA.  Timed and run here only, for contrast."""
+    n = mu.shape[0]
+    lam = prec[0]
+    x = mu * (lam > 0).to(mu.dtype)
+    stride = max(1, n // k)
+    c = x[::stride][:k]
+    if c.shape[0] < k:
+        c = torch.cat([c, x[:k - c.shape[0]]], dim=0)
+    x2 = torch.sum(x * x, 1)
+
+    def assign(c):
+        d2 = x2[:, None] - 2.0 * (x @ c.T) + torch.sum(c * c, 1)[None, :]
+        return torch.argmin(d2, dim=1)
+
+    def stats(lab, v):
+        out = torch.zeros((k, v.shape[1]), dtype=v.dtype, device=v.device)
+        return out.index_add_(0, lab, v)
+
+    ones = torch.ones((n, 1), dtype=mu.dtype, device=mu.device)
+    for _ in range(iters):
+        lab = assign(c)
+        cnt = stats(lab, ones)
+        c = torch.where(cnt > 0, stats(lab, x) / torch.clamp(cnt, min=1.0),
+                        c)
+    lab = assign(c)
+    cnt = stats(lab, ones)
+    mean = stats(lab, mu) / torch.clamp(cnt, min=1.0)
+    var = torch.clamp(stats(lab, mu * mu) / torch.clamp(cnt, min=1.0)
+                      - mean * mean, min=0.0)
+    prec_c = torch.where(lam[None, :] > 0,
+                         1.0 / (1.0 / torch.clamp(lam[None, :], min=1e-30)
+                                + var), torch.zeros_like(var))
+    cnt = cnt[:, 0]
+    logw = torch.where(cnt > 0, torch.log(torch.clamp(cnt, min=1.0)),
+                       torch.full_like(cnt, -1e30))
+    return mean, prec_c, logw
+
+
+def phase_condense(it, K, dev):
+    """condense_mixture on the card: 50 runs of one input bit-equal at
+    N = 20,000, dof 1 and dof 3, k = 256 (the cluster sums are one-hot
+    matrix products), timed beside the index_add_ form it replaced, whose
+    distinct results in 50 runs are counted.  Then the two-variable graph
+    at N = 4,096, whose product stages take the condensed path (Nb >= 768
+    and 2^24 pairs < 2^30), at phase 4's bars with its condense calls
+    counted."""
+    from incrementalinference_torch.ops import product
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    iters = product._CONDENSE_ITERS
+    for dof in (1, 3):
+        mu = torch.randn((20_000, dof), generator=gen, device=dev) * 3
+        prec = torch.full((20_000, dof), 4.0, device=dev)
+        ref = product.condense_mixture(mu, prec, 0, k=256)
+        same = sum(all(torch.equal(a, b) for a, b in zip(
+            product.condense_mixture(mu, prec, 0, k=256), ref))
+            for _ in range(50))
+        check(same == 50, f"condense_mixture dof {dof}: {50 - same} of 50 "
+              f"runs differ from the first")
+        old = {b"".join(t.cpu().numpy().tobytes() for t in
+                        _condense_index_add(mu, prec, 256, iters))
+               for _ in range(50)}
+        ms = cuda_ms(lambda: product.condense_mixture(mu, prec, 0, k=256),
+                     20)
+        old_ms = cuda_ms(lambda: _condense_index_add(mu, prec, 256, iters),
+                         20)
+        print(f"PASS condense_mixture N=20000 dof {dof} k=256 on {dev}: 50 "
+              f"runs bit-equal, {ms:.3f} ms (median); the index_add_ form "
+              f"on the same input {old_ms:.3f} ms, {len(old)} distinct "
+              f"results in 50", flush=True)
+    N = 4096
+    check(N >= product.CONDENSE_MIN_NB
+          and N * N < product.LARGE_PAIR_THRESHOLD,
+          "the condense fixture no longer takes the condensed path")
+    with _Counting(product, "condense_mixture") as c:
+        fg = _two_var_graph(it, N, device=dev)
+        K.reset_counts()
+        _sync(dev)
+        t0 = time.time()
+        it.solve_tree(fg)
+        _sync(dev)
+        wall = time.time() - t0
+    check(c.calls > 0, f"the N={N} solve never condensed")
+    stats = _check_two_var(fg, f"condense path N={N}")
+    print(f"PASS two-variable N={N} through the condensed product: "
+          f"{wall:.3f} s, {c.calls} condense calls, {K.counts['launches']} "
+          f"kernel launches; posteriors (mean, std) {stats}", flush=True)
 
 
 def _mode_mass(fg, v, center, tol=20.0):
@@ -1805,7 +2094,7 @@ def phase_sass(K, dof=1):
     if not os.path.exists(tool):
         print("SASS inner loop: not measured (no cuobjdump)")
         return
-    sass = subprocess.run([tool, "-sass", K._SO], capture_output=True,
+    sass = subprocess.run([tool, "-sass", K.LIBRARY.path()], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
                 if f"row_lse_partialILi{dof}E" in f.split("\n", 1)[0])
@@ -2270,21 +2559,27 @@ def main() -> int:
     print(f"# device {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    from incrementalinference_torch import native
+
     t0 = time.time()
     K.build(verbose=True)
-    print(f"PASS build: {time.time() - t0:.2f} s (nvcc "
-          f"{K.build_seconds if K.build_seconds is not None else 'cached'}"
-          f" s)", flush=True)
-
-    from incrementalinference_torch.native import native_available
-    check(native_available(), "the native elimination ordering did not "
-          "build: the solves would run on the Python heuristic's tree")
-    print("PASS native ordering built", flush=True)
+    nvcc_s = "cached" if K.build_seconds is None else \
+        f"{K.build_seconds:.3f}"
+    print(f"PASS build: {time.time() - t0:.2f} s (nvcc {nvcc_s} s, "
+          f"{os.path.basename(K.LIBRARY.path())})", flush=True)
+    check(native.native_available(), "the native elimination ordering did "
+          "not build: the solves would run on the Python heuristic's tree")
+    gxx_s = "cached" if native.build_seconds is None else \
+        f"{native.build_seconds:.3f}"
+    print(f"PASS native ordering built (g++ {gxx_s} s, "
+          f"{os.path.basename(native.LIBRARY.path())})", flush=True)
     phase_sass(K)
 
     phase_compare(K, dev)
     phase_linestep(it, K)
     _, launches = phase_large(it, K)
+    phase_warmstart(it, K)
+    phase_condense(it, K, dev)
     phase_fourdoor(it, K, 100, "cuda")
     for tol in (0.0, 0.6):
         phase_growing_chain(it, "cuda", tol)

@@ -1,14 +1,17 @@
 """Native (C++) constrained min-degree ordering.
 
 The port's own copy of ``incrementalinference/jl_tpu/native``: builds
-``build/libiitpu_torch_ordering.so`` from ``ordering.cpp`` with g++ at first
-use and binds it with ctypes.  When the build is unavailable,
-tree/ordering.py falls back to its Python heuristic and logs a warning.
+``build/libiitpu_torch_ordering-<digests>.so`` from ``ordering.cpp`` with
+g++ at first use and binds it with ctypes.  The digests name the source, the
+flags and the compiler (``libcache``), so a library built from anything else
+is never loaded.  When the build is unavailable, tree/ordering.py falls back
+to its Python heuristic and logs a warning.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import subprocess
 import threading
@@ -16,44 +19,45 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..libcache import Library
+
 __all__ = ["native_ccolamd", "native_available"]
 
+logger = logging.getLogger(__name__)
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "ordering.cpp")
-_SO = os.path.join(_HERE, "build", "libiitpu_torch_ordering.so")
+LIBRARY = Library(stem="libiitpu_torch_ordering",
+                  src=os.path.join(_HERE, "ordering.cpp"),
+                  build_dir=os.path.join(_HERE, "build"),
+                  compiler=lambda: "g++",
+                  flags=("-O2", "-shared", "-fPIC", "-std=c++17"))
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _FAILED = False
+#: seconds the g++ build took (None: loaded an existing build)
+build_seconds: Optional[float] = None
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _FAILED
+    global _LIB, _FAILED, build_seconds
     with _LOCK:
         if _LIB is not None or _FAILED:
             return _LIB
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                os.makedirs(os.path.dirname(_SO), exist_ok=True)
-                tmp = f"{_SO}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                     _SRC, "-o", tmp],
-                    check=True, capture_output=True, timeout=120)
-                os.replace(tmp, _SO)
-            lib = ctypes.CDLL(_SO)
-            lib.iitpu_ccolamd.restype = ctypes.c_int32
-            lib.iitpu_ccolamd.argtypes = [
-                ctypes.c_int32, ctypes.c_int32,
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int32),
-            ]
-            _LIB = lib
-        except (OSError, subprocess.SubprocessError):
+            lib, build_seconds = LIBRARY.load()
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            logger.warning("native ordering did not build or load: %s", e)
             _FAILED = True
-            _LIB = None
+            return None
+        lib.iitpu_ccolamd.restype = ctypes.c_int32
+        lib.iitpu_ccolamd.argtypes = [
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        _LIB = lib
         return _LIB
 
 

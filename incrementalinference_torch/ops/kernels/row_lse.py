@@ -15,7 +15,8 @@ memory with an online (reference, sum-exp2) and never builds it.
   kernel or raises; for a CPU tensor it takes :func:`row_logsumexp_plain`.
   There is no fallback from one to the other.
 - The kernel is built with ``nvcc`` at first use into ``build/`` beside this
-  file (listed in ``.gitignore``) and bound with ctypes.
+  file (listed in ``.gitignore``), under a content-addressed name, and bound
+  with ctypes.  ``warmstart.seed_cache`` can put it there beforehand.
 - Every function takes an optional leading member axis: B independent
   problems of one shape (a batched level of same-structure cliques) are
   one launch, the kernel taking its member from ``blockIdx.z``.  This is
@@ -31,21 +32,19 @@ import ctypes
 import functools
 import os
 import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
+from ...libcache import Library
+
 __all__ = ["row_logsumexp", "row_logsumexp_plain", "pair_row_logsumexp",
            "pair_row_terms", "split_plan", "build", "counts", "reset_counts",
-           "MAX_DOF"]
+           "MAX_DOF", "LIBRARY"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "csrc", "row_lse.cu")
-_SO = os.path.join(_HERE, "build", "librow_lse.so")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: the kernel holds dof in registers, instantiated for 1..MAX_DOF
 MAX_DOF = 8
@@ -70,30 +69,23 @@ def _nvcc() -> str:
                        "built from csrc/row_lse.cu at first use")
 
 
+#: ``build/librow_lse-<source and flags>-<nvcc>.so`` (``libcache``), so no
+#: library built from anything else loads
+LIBRARY = Library(stem="librow_lse",
+                  src=os.path.join(_HERE, "csrc", "row_lse.cu"),
+                  build_dir=os.path.join(_HERE, "build"),
+                  compiler=_nvcc, flags=_NVCC_FLAGS)
+
+
 def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/row_lse.cu`` (if the build is missing or older than
-    the source) and load it."""
+    """Load the library its content-addressed name gives, compiling
+    ``csrc/row_lse.cu`` first when no such file exists."""
     global _LIB, build_seconds
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            os.makedirs(os.path.dirname(_SO), exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *_NVCC_FLAGS]
-            if verbose:
-                cmd.append("-Xptxas=-v")
-            t0 = time.time()
-            r = subprocess.run([*cmd, "-o", tmp, _SRC], capture_output=True,
-                               text=True, timeout=600)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{r.stderr}")
-            if verbose and r.stderr:
-                print(r.stderr.strip())
-            os.replace(tmp, _SO)
-            build_seconds = time.time() - t0
-        lib = ctypes.CDLL(_SO)
+        lib, build_seconds = LIBRARY.load(
+            extra_flags=("-Xptxas=-v",) if verbose else (), verbose=verbose)
         lib.row_lse_launch.restype = ctypes.c_int
         lib.row_lse_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

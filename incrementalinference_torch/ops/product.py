@@ -143,46 +143,49 @@ def condense_mixture(mu, prec, key: int, k: int,
     """Condense an (N, dof) mixture with a shared precision row to k
     weighted clusters (Lloyd iterations from a strided start; cluster
     variance folds into the kernel variance; counts become log-weights).
-    Returns (centroids (k, dof), precisions (k, dof), log-weights (k,))."""
+    Returns (centroids (k, dof), precisions (k, dof), log-weights (k,)).
+
+    Cluster sums are one-hot matrix products, as in the JAX package: a
+    scatter-add would add with atomics on CUDA, in an order that changes
+    from run to run."""
     del key                                  # strided init, no draws
-    n, _ = mu.shape
     lam = prec[0]
-    w = (lam > 0).to(mu.dtype)
-    x = mu * w                               # cluster constrained dims only
-    stride = max(1, n // k)
-    c = x[::stride][:k]
-    if c.shape[0] < k:
-        c = torch.cat([c, x[:k - c.shape[0]]], dim=0)
-
-    x2 = torch.sum(x * x, 1)
-
-    def assign(c):
-        d2 = x2[:, None] - 2.0 * (x @ c.T) + torch.sum(c * c, 1)[None, :]
-        return torch.argmin(d2, dim=1)
-
-    def stats(lab, v):
-        s = torch.zeros((k, v.shape[1]), dtype=v.dtype, device=v.device)
-        return s.index_add_(0, lab, v)
-
-    ones = torch.ones((n, 1), dtype=mu.dtype, device=mu.device)
-    for _ in range(iters):
-        lab = assign(c)
-        cnt = stats(lab, ones)
-        c = torch.where(cnt > 0, stats(lab, x) / torch.clamp(cnt, min=1.0),
-                        c)
-    lab = assign(c)
-    cnt = stats(lab, ones)
-    mean = stats(lab, mu) / torch.clamp(cnt, min=1.0)
-    var = torch.clamp(stats(lab, mu * mu) / torch.clamp(cnt, min=1.0)
-                      - mean * mean, min=0.0)
+    x = mu * (lam > 0).to(mu.dtype)          # cluster constrained dims only
+    A = _condense_assignment(x, k, iters)    # (N, k) one-hot, final
+    cnt = torch.sum(A, dim=0)                # exact: sums of ones
+    denom = torch.clamp(cnt, min=1.0)[:, None]
+    mean = (A.T @ mu) / denom
+    var = torch.clamp((A.T @ (mu * mu)) / denom - mean * mean, min=0.0)
     prec_c = torch.where(lam[None, :] > 0,
                          1.0 / (1.0 / torch.clamp(lam[None, :], min=1e-30)
                                 + var),
                          torch.zeros_like(var))
-    cnt = cnt[:, 0]
+    # dead clusters: a large finite negative weight, as in the JAX package
     logw = torch.where(cnt > 0, torch.log(torch.clamp(cnt, min=1.0)),
                        torch.full_like(cnt, -1e30))
     return mean, prec_c, logw
+
+
+def _condense_assignment(x, k: int, iters: int):
+    """The one-hot (N, k) cluster assignment after ``iters`` Lloyd steps
+    from the strided start."""
+    n = x.shape[0]
+    stride = max(1, n // k)
+    c = x[::stride][:k]
+    if c.shape[0] < k:
+        c = torch.cat([c, x[:k - c.shape[0]]], dim=0)
+    x2 = torch.sum(x * x, 1)
+
+    def assign(c):
+        d2 = x2[:, None] - 2.0 * (x @ c.T) + torch.sum(c * c, 1)[None, :]
+        lab = torch.argmin(d2, dim=1)
+        return (lab[:, None] == torch.arange(k, device=x.device)).to(x.dtype)
+
+    for _ in range(iters):
+        A = assign(c)
+        cnt = torch.sum(A, dim=0)[:, None]
+        c = torch.where(cnt > 0, (A.T @ x) / torch.clamp(cnt, min=1.0), c)
+    return assign(c)
 
 
 def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key,

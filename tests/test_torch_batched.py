@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import rng, t
+from torch_port_helpers import jax_native_ordering, rng, t  # noqa: F401
 
 import incrementalinference_torch as it
 import incrementalinference_torch.parallel.scheduler as sched

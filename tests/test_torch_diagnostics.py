@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_port_helpers  # noqa: F401 — two torch threads a worker
+from torch_port_helpers import jax_native_ordering  # noqa: F401
 
 import incrementalinference.jl_tpu as jl
 import incrementalinference_torch as it

@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_graph_to_arrays, rng, t
+from torch_port_helpers import (  # noqa: F401
+    jax_graph_to_arrays, jax_native_ordering, rng, t)
 
 import incrementalinference.jl_tpu as jl
 import incrementalinference_torch as it

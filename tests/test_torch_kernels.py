@@ -5,6 +5,8 @@ CUDA kernel itself is held against that version on the card by
 chip_smoke.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,8 +95,8 @@ def test_cuda_path_never_falls_back(monkeypatch, tmp_path):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(K, "_nvcc", no_nvcc)
-    monkeypatch.setattr(K, "_SO", str(tmp_path / "librow_lse.so"))
+    monkeypatch.setattr(K, "LIBRARY", dataclasses.replace(
+        K.LIBRARY, compiler=no_nvcc, build_dir=str(tmp_path)))
     muA, precA, muB, precB = _inputs(8, 8, 2, seed=1)
     a2, iva, ivm = K.pair_row_terms(t(muA), t(precA), t(muB), t(precB))
     before = dict(K.counts)

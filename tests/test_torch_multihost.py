@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import rng, t
+from torch_port_helpers import (  # noqa: F401
+    jax_native_ordering, jax_native_ordering_available, rng, t)
 
 import incrementalinference_torch as it
 from incrementalinference.jl_tpu import beliefs as jbeliefs
@@ -95,6 +96,19 @@ def test_partition_matches_jax(name, scale, n_parts):
     got = _partition_keyed(tree, partition_tree(tree, n_parts))
     want = _partition_keyed(jtree, jmh.partition_tree(jtree, n_parts))
     assert got == want
+
+
+def test_partition_matches_jax_after_a_lost_native_load(monkeypatch):
+    """A worker that found the JAX package's native library half-written
+    by another worker remembers the failed load for good, and its chain-12
+    tree (the Python heuristic's) then differs from the port's.  The
+    helper forgets the failure and loads again, so the comparison holds."""
+    import incrementalinference.jl_tpu.native as jn
+
+    monkeypatch.setattr(jn, "_LIB", None)
+    monkeypatch.setattr(jn, "_FAILED", True)
+    assert jax_native_ordering_available()
+    test_partition_matches_jax("chain", 12, 3)
 
 
 _LAYOUTS = {"se2_chain": [(3, ["x1", "x2"]), (5, ["x4"])],

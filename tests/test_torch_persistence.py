@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import rng, scaled
+from torch_port_helpers import (  # noqa: F401
+    jax_native_ordering, rng, scaled)
 
 import jax
 import jax.numpy as jnp

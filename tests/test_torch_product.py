@@ -88,3 +88,112 @@ def test_condensed_cascade_matches_gaussian_product():
     # mean standard error of ~0.02
     assert abs(m - 1.0) < 0.1, m
     assert 0.6 < s < 0.85, s
+
+
+def _condense_index_add(mu, prec, k, iters=tp._CONDENSE_ITERS):
+    """condense_mixture as it was written before its cluster sums became
+    one-hot products: scatter-adds by ``index_add_``, which add with
+    atomics on CUDA.  Returns its outputs and the final labels."""
+    n = mu.shape[0]
+    lam = prec[0]
+    x = mu * (lam > 0).to(mu.dtype)
+    stride = max(1, n // k)
+    c = x[::stride][:k]
+    if c.shape[0] < k:
+        c = torch.cat([c, x[:k - c.shape[0]]], dim=0)
+    x2 = torch.sum(x * x, 1)
+
+    def assign(c):
+        d2 = x2[:, None] - 2.0 * (x @ c.T) + torch.sum(c * c, 1)[None, :]
+        return torch.argmin(d2, dim=1)
+
+    def stats(lab, v):
+        s = torch.zeros((k, v.shape[1]), dtype=v.dtype)
+        return s.index_add_(0, lab, v)
+
+    ones = torch.ones((n, 1), dtype=mu.dtype)
+    for _ in range(iters):
+        lab = assign(c)
+        cnt = stats(lab, ones)
+        c = torch.where(cnt > 0, stats(lab, x) / torch.clamp(cnt, min=1.0),
+                        c)
+    lab = assign(c)
+    cnt = stats(lab, ones)
+    mean = stats(lab, mu) / torch.clamp(cnt, min=1.0)
+    var = torch.clamp(stats(lab, mu * mu) / torch.clamp(cnt, min=1.0)
+                      - mean * mean, min=0.0)
+    prec_c = torch.where(lam[None, :] > 0,
+                         1.0 / (1.0 / torch.clamp(lam[None, :], min=1e-30)
+                                + var), torch.zeros_like(var))
+    cnt = cnt[:, 0]
+    logw = torch.where(cnt > 0, torch.log(torch.clamp(cnt, min=1.0)),
+                       torch.full_like(cnt, -1e30))
+    return (mean, prec_c, logw), lab
+
+
+def _condense_inputs(dof):
+    """16 separated clusters, the last 5 points longer than the rest, so N
+    (2101) is not a multiple of k and the strided start still puts one
+    centroid in each cluster: no point lies near an assignment boundary.
+    At dof 3 the middle dimension carries no precision.  The kernels are
+    wider than the clusters, as where the cascade condenses: a cluster's
+    variance E[x^2] - mean^2 cancels in float32 (to ~1e-4 at means of 23),
+    and another summation order moves it that much in either package."""
+    r = rng(30 + dof)
+    sizes = [131] * 15 + [136]
+    centers = r.uniform(-0.5, 0.5, size=(16, dof)) \
+        + np.arange(16)[:, None] * 3.0 - 22.5
+    mu = np.concatenate([c + r.normal(size=(s, dof)) * 0.3
+                         for c, s in zip(centers, sizes)]).astype(np.float32)
+    row = np.asarray([0.01, 0.0, 0.0025][:dof], np.float32)
+    return mu, np.broadcast_to(row, mu.shape).copy()
+
+
+def _no_scatter(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("condense_mixture used a scatter-add")
+
+    for name in ("index_add_", "index_add", "scatter_add_", "scatter_add",
+                 "scatter_reduce_", "scatter_reduce", "index_put_"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+@pytest.mark.parametrize("dof", [1, 3])
+def test_condense_one_hot_sums_match_jax_and_the_scatter_form(dof,
+                                                              monkeypatch):
+    mu, prec = _condense_inputs(dof)
+    k = 16
+    assert mu.shape[0] % k != 0
+    (om, op, ow), olab = _condense_index_add(t(mu), t(prec), k)
+    ref = jp.condense_mixture(jnp.asarray(mu), jnp.asarray(prec),
+                              jax.random.PRNGKey(0), k=k)
+    _no_scatter(monkeypatch)
+    got = tp.condense_mixture(t(mu), t(prec), 0, k=k)
+    lam = t(prec)[0]
+    A = tp._condense_assignment(t(mu) * (lam > 0).float(), k,
+                                tp._CONDENSE_ITERS)
+    monkeypatch.undo()
+    # the assignments exactly: labels against the scatter form, cluster
+    # sizes (the log-weights) against both
+    np.testing.assert_array_equal(A.argmax(1).numpy(), olab.numpy())
+    np.testing.assert_array_equal(A.sum(0).numpy(),
+                                  np.bincount(olab.numpy(), minlength=k))
+    np.testing.assert_array_equal(got[2].numpy(), ow.numpy())
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    # the sums over a cluster in another order
+    for g, o, j in zip(got, (om, op, ow), ref):
+        np.testing.assert_allclose(g.numpy(), o.numpy(), rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-5)
+
+
+def test_condense_dead_clusters_keep_a_finite_weight():
+    """k above the distinct points: the clusters no point chose keep the
+    JAX package's -1e30, not -inf."""
+    mu = np.repeat(np.asarray([[1.0], [5.0]], np.float32), 50, axis=0)
+    prec = np.full_like(mu, 4.0)
+    got = tp.condense_mixture(t(mu), t(prec), 0, k=4)
+    ref = jp.condense_mixture(jnp.asarray(mu), jnp.asarray(prec),
+                              jax.random.PRNGKey(0), k=4)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    assert np.isfinite(got[2].numpy()).all()
+    assert (np.sort(got[2].numpy())[:2] == np.float32(-1e30)).all()

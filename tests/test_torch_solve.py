@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_graph_to_arrays
+from torch_port_helpers import (  # noqa: F401
+    jax_graph_to_arrays, jax_native_ordering)
 
 import incrementalinference_torch as it
 from incrementalinference_torch.ops import product as tp

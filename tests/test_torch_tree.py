@@ -5,7 +5,8 @@ order against a Python fallback."""
 
 import pytest
 
-from torch_port_helpers import jax_native_ordering_available
+from torch_port_helpers import (  # noqa: F401
+    jax_native_ordering, jax_native_ordering_available)
 
 from incrementalinference.jl_tpu import canonical as jcan
 from incrementalinference.jl_tpu.tree.bayestree import build_tree as j_build

@@ -8,6 +8,7 @@ torch to two threads.
 import time
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -30,6 +31,16 @@ def jax_native_ordering_available(wait_s: float = 60.0) -> bool:
         jn._LIB = None
         time.sleep(1.0)
     return True
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_ordering():
+    """Imported into each test file that builds a JAX tree, ordering or
+    partition: without the JAX package's native ordering its trees are the
+    Python heuristic's, and the comparisons with the port's would fail for
+    that alone (or pass against the wrong tree)."""
+    assert jax_native_ordering_available(), (
+        "the JAX package's native ordering did not load in this worker")
 
 
 def rng(seed: int = 0) -> np.random.Generator:
