@@ -38,17 +38,32 @@ Phases (any failure exits non-zero before the result line; none is caught):
    (phase_condense): 50 runs at N = 20,000, dof 1 and 3, k = 256,
    bit-equal, timed beside the index_add_ form it replaced; the
    two-variable graph at N = 4,096 through the condensed product stages
-   at phase 4's bars;
-5. the multimodal, incremental solve: the fourdoor story (a four-mode
+   at phase 4's bars.  The precision pin (phase_precision): the N = 4,096
+   and N = 50,000 two-variable graphs solved twice at the default setting
+   and once under a caller's set_float32_matmul_precision("high"), the
+   posteriors bit-equal, every _pair_logW and condense_mixture call in
+   "ieee", "high" given back; the TF32 - IEEE gap of _pair_logW and
+   condense_mixture on those solves' inputs, and of _pair_logW at dof 2,
+   3, 6 and 8, where the pinned call under "high" must equal IEEE;
+5. the six scripts of examples_torch/ (phase_examples, budget 240 s),
+   each through its main() at its bars: the fourdoor story (a four-mode
    Mixture prior seen three times along a chain; build, solve, grow,
    re-solve with ``old_tree``) at N = 100 and at N = 50,000, where its
    products go through the kernel, with the bars of
-   tests/test_solve.py:23-39 after each solve; a chain that grows by six
-   poses three times, re-solved with clique recycling, once with the
-   wildfire gate off and once at tolerance 0.6 (|mean(x_i) - i| < 0.5, the
-   recycled count grows; ``wildfire_stats`` of both printed); the
-   range-only graph (EuclidDistance, dof 2, the LM branch of the
-   convolution) at the bars of tests/test_solve.py:181-193;
+   tests/test_solve.py:23-39 after each solve (phase_fourdoor), and once
+   as `python3 examples_torch/fourdoor.py` in a fresh process that
+   imports nothing of JAX; the range-only graph (EuclidDistance, dof 2,
+   the LM branch of the convolution) at the bars of
+   tests/test_solve.py:181-193 (phase_euclid), then a third range; the
+   golden saveDFG archive loaded, solved, saved and loaded back; the
+   incremental SE(2) SLAM example with its parametric cross-check; the
+   ODE example (three DERelatives, then the n-ary decay-rate factor of
+   tests/test_extensions.py:229-254 at 16 RK4 steps, |mean(k) - 0.7| <
+   0.15); two processes on the card (examples_torch/multihost.py); then a
+   chain that grows by six poses three times, re-solved with clique
+   recycling, once with the wildfire gate off and once at tolerance 0.6
+   (|mean(x_i) - i| < 0.5, the recycled count grows; ``wildfire_stats`` of
+   both printed);
 6. curved manifolds: the SE(2) hexagon (7 poses, a landmark, a loop
    closure) at N = 100, one solve (Karcher means of x1, x3, x6 within
    1.5 of the ideal hexagon's poses); the circular chain of
@@ -66,7 +81,7 @@ Phases (any failure exits non-zero before the result line; none is caught):
    DERelative with the ramp as ``data``; one proposal for each variable
    is counted first: its LM iterations and Jacobian passes) and a landmark
    with a HeatmapGridDensity prior seen from a pose on R² (products at dof
-   2); the n-ary decay-rate DERelative at N = 100; deepcopy_graph,
+   2); deepcopy_graph,
    remove_variable and a re-solve on the card, ppe_batched against ppe on
    the hexagon's poses, and the clique accessors over its tree;
    Then persistence and diagnostics (phase_persistence): warmup; the
@@ -125,7 +140,7 @@ Phases (any failure exits non-zero before the result line; none is caught):
    |x_i - i| < 1e-2 and every covariance finite and positive, with the
    split of a warm solve; the same with solver="cg" (within 1e-2 of the
    dense solve); the SE(3) chain of benchmarks/parametric_scale.py, cut
-   from 200 poses to 60 (autoinit's rounds take about 2 s a pose on the
+   from 200 poses to 30 (autoinit's rounds take 1.3-2.4 s a pose on the
    card's host, PERF.md), through autoinit_parametric and the solve, and
    the solve alone on a fresh graph seeded with the autoinit points
    (translation error < 2.0 against the composed step, covariance blocks
@@ -767,30 +782,341 @@ def _check_fourdoor(fg, step):
             check(abs(mean - c) < 10.0, f"step 3: {v} mean {mean}")
 
 
-def phase_fourdoor(it, K, N, dev):
-    """The fourdoor story through the port's entry points: three times grow
-    the graph and ``solve_tree(fg, old_tree=tree)``.  Returns the kernel
-    launches of each step: the counts are set to 0 before the step grows
-    the graph and read after its solve."""
-    fg, steps = it.fourdoor_sequence(it.SolverParams(N=N), device=dev)
-    tree, walls, launches, recycled = None, [], [], []
-    for k, step in enumerate(steps, start=1):
-        K.reset_counts()
-        step()
-        torch.cuda.synchronize()
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+_PRECISION_LEAVES = (torch.backends, torch.backends.cuda.matmul,
+                     torch.backends.cudnn.conv, torch.backends.cudnn.rnn,
+                     torch.backends.mkldnn.matmul, torch.backends.mkldnn.conv,
+                     torch.backends.mkldnn.rnn)
+
+
+def _precision():
+    """Every per-backend float32 precision setting (the new API only)."""
+    return tuple(m.fp32_precision for m in _PRECISION_LEAVES)
+
+
+def _restore_precision(saved):
+    torch.set_float32_matmul_precision("highest")
+    for m, v in zip(_PRECISION_LEAVES, saved):
+        m.fp32_precision = v
+    check(_precision() == saved, "the precision settings were not restored")
+
+
+def _tf32_gap(f, pinned, args):
+    """max |TF32 - IEEE| of f(*args) under a caller's "high" (f is a
+    function outside the pin), and whether the pinned function under that
+    "high" gives the default setting's result bit for bit."""
+    ieee = f(*args)
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32, held = f(*args), pinned(*args)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    return float((tf32 - ieee).abs().max()), torch.equal(held, ieee)
+
+
+def phase_precision(it, K):
+    """Full float32 precision on the port's own terms (config.full_precision
+    pins each entry point's span): the two-variable graph at N = 4,096 (its
+    product stages condense) and at N = 50,000 (the column draw runs
+    _pair_logW) solved twice at the default setting and once with a
+    caller's torch.set_float32_matmul_precision("high") set before the
+    graph is built; each call of _pair_logW and condense_mixture asserts
+    that matmul precision reads "ieee" where it is called, the three
+    posteriors bit-equal, and the caller's setting back after the solve.
+    Then the size of the fault this closes, outside the pin: max |TF32 -
+    IEEE| of _pair_logW on the N = 50,000 solve's own inputs (products with
+    K = dof = 1) and of condense_mixture on the N = 4,096 solve's (one-hot
+    sums), and of _pair_logW at dof 2, 3, 6 and 8 on 4,096 x 4,096 inputs
+    (K = dof), where the pinned call under "high" must equal the IEEE
+    result bit for bit."""
+    from incrementalinference_torch.ops import product
+
+    dev, small, large = "cuda", 4096, 50_000
+    default = _precision()
+    calls, condensed, seen = [], [], []
+    keep = {"N": None}                 # whose inputs to keep: the first run's
+    orig, orig_condense = product._pair_logW, product.condense_mixture
+
+    def recorded(*a):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        if keep["N"] == large:
+            calls.append(a)
+        return orig(*a)
+
+    def recorded_condense(*a, **k):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        if keep["N"] == small:
+            condensed.append((a, k))
+        return orig_condense(*a, **k)
+
+    for N in (small, large):
+        posts, walls = [], []
+        for run in ("default", "default", "high"):
+            if run == "high":
+                torch.set_float32_matmul_precision("high")
+                caller = _precision()
+            fg = _two_var_graph(it, N, device=dev)
+            seen.clear()
+            keep["N"] = N if not posts else None
+            product._pair_logW = recorded
+            product.condense_mixture = recorded_condense
+            try:
+                _sync(dev)
+                t0 = time.time()
+                it.solve_tree(fg)
+                _sync(dev)
+                walls.append(time.time() - t0)
+            finally:
+                product._pair_logW = orig
+                product.condense_mixture = orig_condense
+            check(seen and set(seen) == {"ieee"},
+                  f"N={N} {run}: matmul precision where the products run "
+                  f"{sorted(set(seen))} ({len(seen)} calls), not 'ieee'")
+            if run == "high":
+                check(_precision() == caller
+                      and torch.backends.cuda.matmul.fp32_precision == "tf32"
+                      and torch.get_float32_matmul_precision() == "high",
+                      f"N={N}: the caller's 'high' was not given back: "
+                      f"{_precision()}")
+                _restore_precision(default)
+            _check_two_var(fg, f"precision N={N} {run}")
+            posts.append({v: fg.points(v).clone() for v in fg.ls()})
+        for other in posts[1:]:
+            for v, p in posts[0].items():
+                check(torch.equal(p, other[v]),
+                      f"N={N}: {v}'s posterior differs between the "
+                      f"default and the 'high' solves")
+        print(f"PASS precision pin N={N} on {dev}: two default solves and "
+              f"one under the caller's 'high' bit-equal, every product "
+              f"call ({len(seen)} in the last) in 'ieee', 'high' given back "
+              f"after the solve; walls {[round(w, 3) for w in walls]} s",
+              flush=True)
+
+    check(calls, f"the N={large} solve never called _pair_logW")
+    check(condensed, f"the N={small} solve never condensed")
+    raw = product._pair_logW.__wrapped__       # outside the pin
+    raw_condense = product.condense_mixture.__wrapped__
+    gap, scale = 0.0, 0.0
+    cgap = [0.0, 0.0, 0.0]                     # means, precisions, log w
+    torch.set_float32_matmul_precision("high")
+    try:
+        for a in calls:
+            tf32 = raw(*a)
+            ieee = product._pair_logW(*a)
+            gap = max(gap, float((tf32 - ieee).abs().max()))
+            scale = max(scale, float(ieee.abs().max()))
+            del tf32, ieee
+        for a, k in condensed:
+            for i, (x, y) in enumerate(zip(raw_condense(*a, **k),
+                                           product.condense_mixture(*a,
+                                                                    **k))):
+                rel = ((x - y).abs() / y.abs().clamp(min=1e-30)).max()
+                cgap[i] = max(cgap[i], float(rel))
+    finally:
+        _restore_precision(default)
+    print(f"PASS the fault closed: max |TF32 - IEEE| of _pair_logW over the "
+          f"{len(calls)} calls of the N={large} solve "
+          f"({tuple(calls[0][0].shape)}"
+          f" x {tuple(calls[0][2].shape)} each) = {gap:.6g}, against "
+          f"max |logW| {scale:.6g}; of condense_mixture over the "
+          f"{len(condensed)} calls of the N={small} solve, max relative "
+          f"|TF32 - IEEE| of the cluster means {cgap[0]:.6g}, precisions "
+          f"{cgap[1]:.6g}, log weights {cgap[2]:.6g}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gaps = {}
+    for dof in (2, 3, 6, 8):
+        muA, muB = (torch.randn((small, dof), generator=gen, device=dev) * 3
+                    + 10 for _ in range(2))
+        precA = torch.full((small, dof), 156.0, device=dev)
+        precB = torch.full((small, dof), 156.0, device=dev)
+        args = (muA, precA, muB, precB)
+        gaps[dof], held = _tf32_gap(raw, product._pair_logW, args)
+        check(held, f"_pair_logW dof {dof}: the pinned call under 'high' "
+                    f"differs from the IEEE result")
+        _restore_precision(default)
+    print(f"PASS _pair_logW at dof 2, 3, 6, 8 on {small} x {small} inputs "
+          f"(x ~ 10 +- 3, precision 156): the pinned call under 'high' "
+          f"bit-equal to IEEE; max |TF32 - IEEE| outside the pin by dof "
+          f"{ {d: float(f'{g:.6g}') for d, g in gaps.items()} }", flush=True)
+    return gap, cgap, gaps
+
+
+def _example(name):
+    """examples_torch/<name>.py, imported as a module."""
+    import importlib.util
+
+    path = os.path.join(_ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _ExampleSolves:
+    """Wraps an example module's ``solve_tree`` while entered: the wall of
+    each solve, the kernel's launches since the solve before it (the graph
+    growth between them included; the counts are set to 0 on entry), the
+    recycled cliques, and ``after(fg, k)``, a check after solve k."""
+
+    def __init__(self, mod, K, dev, after=None):
+        self.mod, self.K, self.dev, self.after = mod, K, dev, after
+        self.walls, self.launches, self.recycled = [], [], []
+
+    def __enter__(self):
+        self.orig, self.seen = self.mod.solve_tree, 0
+        self.K.reset_counts()
+        self.mod.solve_tree = self.solve
+        return self
+
+    def solve(self, fg, **kw):
+        _sync(self.dev)
         t0 = time.time()
-        tree = it.solve_tree(fg, old_tree=tree)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        launches.append(K.counts["launches"])
-        recycled.append(sum(c.is_recycled for c in tree.cliques.values()))
-        _check_fourdoor(fg, k)
+        tree = self.orig(fg, **kw)
+        _sync(self.dev)
+        self.walls.append(time.time() - t0)
+        n = self.K.counts["launches"]
+        self.launches.append(n - self.seen)
+        self.seen = n
+        self.recycled.append(sum(c.is_recycled
+                                 for c in tree.cliques.values()))
+        if self.after is not None:
+            self.after(fg, len(self.walls))
+        return tree
+
+    def __exit__(self, *exc):
+        self.mod.solve_tree = self.orig
+
+
+def _fourdoor_script():
+    """`python3 examples_torch/fourdoor.py` in a fresh process, run with
+    -X importtime to list every module it imports.  Returns its wall, its
+    imports and its last line."""
+    env = dict(os.environ, PYTHONPATH=_ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime",
+         os.path.join("examples_torch", "fourdoor.py")], cwd=_ROOT, env=env,
+        capture_output=True, text=True, timeout=180)
+    wall = time.time() - t0
+    check(proc.returncode == 0, f"examples_torch/fourdoor.py exited "
+          f"{proc.returncode}: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    imported = [ln.rsplit("|", 1)[-1].strip()
+                for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:")]
+    jaxlike = [m for m in imported
+               if m.split(".")[0] in ("jax", "jaxlib", "incrementalinference")]
+    check(len(imported) > 100 and not jaxlike and "x4: mean=" in proc.stdout,
+          f"examples_torch/fourdoor.py: {len(imported)} imports, JAX's "
+          f"{jaxlike[:5]}; output {proc.stdout[-500:]}")
+    return wall, len(imported), proc.stdout.strip().splitlines()[-1]
+
+
+def _beside():
+    """The two examples that start processes of their own, run on a thread
+    beside the in-process ones: the fourdoor script, then multihost.
+    Returns their walls and the thread's span (start, end) on time.time()."""
+    t_start, walls = time.time(), {}
+    wall, n_imports, last = _fourdoor_script()
+    walls["python3 examples_torch/fourdoor.py"] = wall
+    print(f"PASS python3 examples_torch/fourdoor.py in a fresh process: "
+          f"exit 0 in {wall:.3f} s, {n_imports} modules imported, none of "
+          f"JAX or the JAX package; its last line: {last}", flush=True)
+    ex = _example("multihost")
+    t0 = time.time()
+    reps, reps_p = ex.main(device="cuda")
+    walls["multihost"] = time.time() - t0
+    print(f"PASS examples_torch/multihost.py, two processes on the card: "
+          f"{walls['multihost']:.3f} s; warm max errs "
+          f"{[r['warm']['max_err'] for r in reps]}, incremental recycled "
+          f"{[r['incr']['n_recycled'] for r in reps]} of "
+          f"{reps[0]['incr']['n_cliques']}; parametric max errs "
+          f"{[r['warm']['max_err'] for r in reps_p]}", flush=True)
+    return walls, (t_start, time.time())
+
+
+def phase_examples(it, K):
+    """The six scripts of examples_torch/ on the card (budget 240 s), each
+    through its main(), which asserts its bars.  In this process: fourdoor
+    at N = 100 and at N = 50,000 (phase_fourdoor: the kernel must launch on
+    solves 2 and 3) and range_only (phase_euclid), alone on the card and
+    its host; then, with a thread beside them, migrate_from_reference (the
+    golden archive solved, saved and loaded back), se2_slam, and
+    ode_smoothing with its decay-rate factor at 16 RK4 steps (32 in the
+    example; 85 s on the card's host, PERF.md).  The thread runs the two
+    that start processes of their own: fourdoor once more as
+    `python3 examples_torch/fourdoor.py` (exit code 0, no module of JAX or
+    the JAX package imported, read from -X importtime), then multihost (two
+    processes on the card).  The walls that overlapped the thread's span
+    are printed as such: they shared the card and its host.  Returns the
+    fourdoor N = 50,000 launches per solve."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev, large = "cuda", 50_000
+    t_phase = time.time()
+    walls, spans = {}, {}
+
+    def timed(name, f):
+        t0 = time.time()
+        out = f()
+        spans[name] = (t0, time.time())
+        walls[name] = spans[name][1] - t0
+        return out
+
+    timed("fourdoor", lambda: phase_fourdoor(it, K, 100, dev))
+    fd_launches = timed(f"fourdoor --n {large}",
+                        lambda: phase_fourdoor(it, K, large, dev))
+    check(fd_launches[1] > 0 and fd_launches[2] > 0,
+          f"the N={large} fourdoor solves never launched the "
+          f"row_logsumexp kernel: {fd_launches}")
+    timed("range_only", lambda: phase_euclid(it, K, dev))
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        beside = pool.submit(_beside)
+        for name, kw in (("migrate_from_reference", {}), ("se2_slam", {}),
+                         ("ode_smoothing", {"nary_steps": 16})):
+            ex = _example(name)
+            with _ExampleSolves(ex, K, dev) as s:
+                timed(name, lambda: ex.main(device=dev, **kw))
+            print(f"PASS examples_torch/{name}.py on {dev} at its bars"
+                  f"{f' {kw}' if kw else ''}: {walls[name]:.3f} s; solve "
+                  f"walls {[round(w, 3) for w in s.walls]} s; kernel "
+                  f"launches {s.launches}; recycled cliques {s.recycled}",
+                  flush=True)
+        walls["in this process"] = time.time() - t_phase
+        thread_walls, (a, b) = beside.result()
+        walls.update(thread_walls)
+
+    overlapped = [n for n, (t0, t1) in spans.items() if t0 < b and t1 > a]
+    dt = time.time() - t_phase
+    print(f"# phase_examples: {dt:.1f} s; walls "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }; the thread ran "
+          f"{a - t_phase:.1f}-{b - t_phase:.1f} s into the phase, beside "
+          f"{overlapped} (those walls shared the card and its host)",
+          flush=True)
+    check(dt < 240, f"phase_examples took {dt:.1f} s (budget 240 s)")
+    return fd_launches
+
+
+def phase_fourdoor(it, K, N, dev):
+    """The fourdoor story through examples_torch/fourdoor.py, whose main()
+    grows the graph three times and ``solve_tree(fg, old_tree=tree)``s
+    after each; its solves are wrapped to assert _check_fourdoor after
+    each and to count the kernel's launches of each step (the counts set
+    to 0 before the example starts, read after each solve: a step's count
+    holds its graph growth).  Returns those launches."""
+    ex = _example("fourdoor")
+    with _ExampleSolves(ex, K, dev, after=_check_fourdoor) as s:
+        fg, tree = ex.main(device=dev, n=N)
     means = {v: round(float(fg.points(v).mean()), 2) for v in fg.ls()}
-    print(f"PASS fourdoor N={N} on {dev}, three solves with old_tree: "
-          f"walls {[round(w, 3) for w in walls]} s; kernel launches per "
-          f"step {launches}; recycled cliques per step {recycled} of "
+    print(f"PASS fourdoor N={N} on {dev} (examples_torch/fourdoor.py), "
+          f"three solves with old_tree: walls "
+          f"{[round(w, 3) for w in s.walls]} s; kernel launches per step "
+          f"{s.launches}; recycled cliques per step {s.recycled} of "
           f"{tree.num_cliques()}; final means {means}", flush=True)
-    return launches
+    return s.launches
 
 
 def phase_growing_chain(it, dev, wildfire_tol):
@@ -824,15 +1150,31 @@ def phase_growing_chain(it, dev, wildfire_tol):
           flush=True)
 
 
-def phase_euclid(it, dev):
-    """The range-only landmark graph: two rings of radius 100 around
-    (100, 0) and (0, 100) meet at (0, 0) and (100, 100)."""
-    fg = it.generate_euclid_distance(device=dev)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    it.solve_tree(fg)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+def phase_euclid(it, K, dev):
+    """The range-only landmark graph through examples_torch/range_only.py:
+    two rings of radius 100 around (100, 0) and (0, 100) meet at (0, 0)
+    and (100, 100); then a third range from (100, 100) leaves (0, 0).  The
+    bars of tests/test_solve.py:181-193 after the first solve (asserted by
+    the example and again here), the example's own after the second."""
+    ex = _example("range_only")
+
+    def after(fg, k):
+        if k == 1:
+            _check_rings(fg)
+
+    with _ExampleSolves(ex, K, dev, after=after) as s:
+        _, out = ex.main(device=dev)
+    a, b = out["shares_30m"]
+    print(f"PASS range-only graph N=100 on {dev} "
+          f"(examples_torch/range_only.py): walls "
+          f"{[round(w, 3) for w in s.walls]} s; two ranges: mode shares "
+          f"{a:.2f} at (0,0), {b:.2f} at (100,100), on the rings "
+          f"{out['rings'][0]:.2f}, {out['rings'][1]:.2f}; three ranges: "
+          f"{out['three']}", flush=True)
+    return s.walls
+
+
+def _check_rings(fg):
     pts = fg.points("l1")
 
     def near(x, y, r):
@@ -847,9 +1189,6 @@ def phase_euclid(it, dev):
     r1, r2 = on_ring(100.0, 0.0), on_ring(0.0, 100.0)
     check(a > 0.04 and b > 0.04 and a + b > 0.6, f"ring modes {a}, {b}")
     check(r1 > 0.85 and r2 > 0.85, f"on the rings {r1}, {r2}")
-    print(f"PASS range-only graph N=100 on {dev}: {wall:.3f} s; mode "
-          f"shares {a:.2f} at (0,0), {b:.2f} at (100,100); on the rings "
-          f"{r1:.2f}, {r2:.2f}", flush=True)
 
 
 def phase_hexagonal(it):
@@ -1095,17 +1434,16 @@ def phase_flux_mixture(it, K, N=50_000):
     return launches
 
 
-def phase_forced_ode(it, K, N=50_000, steps=32, nary_steps=16):
+def phase_forced_ode(it, K, N=50_000, steps=32):
     """The forced ODE of tests/test_extensions.py:178-226 at N = 50,000:
     a prior Normal(1, 0.05) on x0, the DERelative with the ramp as its
     ``data``, a prior Normal(x1_truth, 0.05) on x1.  First one proposal for
     each variable alone (its LM iterations, Jacobian and residual passes,
     and wall), then the solve, whose products go through the kernel.  Bars
-    |mean(x1) − x1_truth| < 0.25, |mean(x0) − 1| < 0.25.  Then the n-ary
-    decay-rate graph of tests/test_extensions.py:229-254 at N = 100
-    (|mean(k) − 0.7| < 0.15), its RK4 steps cut from 32 to 16 for the
-    script's time (85 s at 32 steps on the card's host, PERF.md).  Returns
-    the kernel launches of the N = 50k solve."""
+    |mean(x1) − x1_truth| < 0.25, |mean(x0) − 1| < 0.25.  (The n-ary
+    decay-rate graph of tests/test_extensions.py:229-254 is solved by
+    examples_torch/ode_smoothing.py in phase_examples, at its bar.)
+    Returns the kernel launches of the N = 50k solve."""
     from incrementalinference_torch.ops import convolve
 
     tgrid = torch.linspace(_RAMP_T0, _RAMP_T0 + _RAMP_DT * (_RAMP_N - 1),
@@ -1173,25 +1511,6 @@ def phase_forced_ode(it, K, N=50_000, steps=32, nary_steps=16):
           f"through the kernel: {wall:.3f} s; launches {launches} (graph "
           f"build with graphinit {build_launches}); mean x0 {m0:.4f} "
           f"(1), x1 {m1:.4f} ({x1_truth:.4f})", flush=True)
-
-    def decay(t, x, k):
-        return -k[..., :1] * x
-
-    fk = it.initfg(device="cuda")
-    for v in ("x0", "x1", "k"):
-        fk.add_variable(v, it.ContinuousScalar)
-    fk.add_factor(["x0"], it.Prior(it.Normal(2.0, 0.02)))
-    fk.add_factor(["x1"], it.Prior(it.Normal(2.0 * math.exp(-1.4), 0.02)))
-    fk.add_factor(["k"], it.Prior(it.Normal(0.5, 0.5)))
-    fk.add_factor(["x0", "x1", "k"], it.DERelative(
-        decay, t0=0.0, t1=2.0, Z=it.MvNormal([0.0], [1e-4]), dim=1,
-        steps=nary_steps))
-    wall_k, _ = _solve_timed(it, fk)
-    mk = float(fk.points("k").mean())
-    check(abs(mk - 0.7) < 0.15, f"n-ary DERelative: mean(k) {mk}")
-    print(f"PASS n-ary DERelative (decay rate k) N=100, {nary_steps} RK4 "
-          f"steps, solve_tree on CUDA: {wall_k:.3f} s; mean(k) {mk:.4f} "
-          f"(0.7)", flush=True)
     return launches
 
 
@@ -2331,7 +2650,7 @@ def _se3_chain(it, n, dev):
     return fg
 
 
-def phase_param_se3(it, K, dev, n=60):
+def phase_param_se3(it, K, dev, n=30):
     """The SE(3) chain through autoinit_parametric and solve_graph_parametric,
     then the solve alone on a fresh graph seeded with the autoinit points.
     Returns the kernel launches of the phase (0)."""
@@ -2555,7 +2874,6 @@ def main() -> int:
 
     t_all = time.time()
     dev = torch.device("cuda")
-    it.resolve_device(dev)             # TF32 off for matmuls and cuDNN
     print(f"# device {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -2580,14 +2898,10 @@ def main() -> int:
     _, launches = phase_large(it, K)
     phase_warmstart(it, K)
     phase_condense(it, K, dev)
-    phase_fourdoor(it, K, 100, "cuda")
+    phase_precision(it, K)
+    fd_launches = phase_examples(it, K)
     for tol in (0.0, 0.6):
         phase_growing_chain(it, "cuda", tol)
-    fd_launches = phase_fourdoor(it, K, 50_000, "cuda")
-    check(fd_launches[1] > 0 and fd_launches[2] > 0,
-          f"the N=50k fourdoor solves never launched the row_logsumexp "
-          f"kernel: {fd_launches}")
-    phase_euclid(it, "cuda")
     _, hexagon, hex_tree = phase_hexagonal(it)
     phase_circular(it)
     by_path, handed_by_path = {}, {}
@@ -2619,7 +2933,7 @@ def main() -> int:
     by_path.update(phase_multihost(it, K, dev))
     by_path["parametric LineStep(1000), dense and cg"] = \
         phase_param_linestep(it, K, dev)
-    by_path["parametric SE(3) chain of 60, autoinit and solves"] = \
+    by_path["parametric SE(3) chain of 30, autoinit and solves"] = \
         phase_param_se3(it, K, dev)
     phase_param_jacobians(it, dev)
     by_path["parametric forest of 32, three tree solves"] = \

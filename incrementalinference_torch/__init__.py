@@ -22,7 +22,7 @@ from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
                         generate_euclid_distance, generate_hexagonal,
                         generate_kaess, generate_line_step,
                         generate_test_symbolic)
-from .config import SolverParams, resolve_device
+from .config import SolverParams, full_precision, resolve_device
 from .convert import graph_from_arrays, graph_to_arrays
 from .distributions import (AliasingScalarSampler, Categorical,
                             ManifoldKernelDensity, MvNormal, Normal, Rayleigh,
@@ -98,6 +98,7 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
            "generate_kaess", "generate_line_step", "generate_test_symbolic",
            "generate_caesar_ring1d", "generate_euclid_distance",
            "generate_hexagonal", "fourdoor_sequence", "SolverParams", "resolve_device",
+           "full_precision",
            "graph_from_arrays", "graph_to_arrays", "Normal", "MvNormal",
            "Uniform", "Rayleigh", "Categorical", "AliasingScalarSampler",
            "ManifoldKernelDensity", "manikde", "ContinuousScalar",

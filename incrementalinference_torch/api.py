@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Sequence
 
 from .beliefs import Belief, ppe as calc_ppe
 from .canonical import generate_kaess
-from .config import resolve_device
+from .config import full_precision, resolve_device
 from .graph import FactorGraph
 from .graphinit import ensure_solvable, init_all
 from .parallel.messages import (LikelihoodMessage, prep_msg_down,
@@ -58,6 +58,7 @@ def fifo_freeze(fg: FactorGraph) -> List[str]:
     return frozen
 
 
+@full_precision()
 def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                solve_key: str = "default", store_old: bool = False,
                up: Optional[bool] = None, down: Optional[bool] = None,
@@ -201,6 +202,7 @@ def solve_graph(fg: FactorGraph, **kw) -> BayesTree:
     return solve_tree(fg, **kw)
 
 
+@full_precision()
 def solve_cliq_up(fg: FactorGraph, tree: BayesTree, frontal: str,
                   child_msgs: Optional[List[LikelihoodMessage]] = None,
                   solve_key: str = "default") -> LikelihoodMessage:
@@ -233,6 +235,7 @@ def solve_cliq_up(fg: FactorGraph, tree: BayesTree, frontal: str,
 solve_cliq_with_state_machine = solve_cliq_up
 
 
+@full_precision()
 def approx_cliq_marginal_up(fg: FactorGraph, tree: BayesTree, frontal: str,
                             child_msgs: Optional[List[LikelihoodMessage]]
                             = None, solve_key: str = "default"
@@ -245,6 +248,7 @@ def approx_cliq_marginal_up(fg: FactorGraph, tree: BayesTree, frontal: str,
     return {v: fg.get_belief(v, solve_key) for v in cl.all_vars}
 
 
+@full_precision()
 def solve_cliq_down(fg: FactorGraph, tree: BayesTree, frontal: str,
                     down_msg: Optional[LikelihoodMessage] = None,
                     child_msgs: Optional[List[LikelihoodMessage]] = None,
@@ -261,6 +265,7 @@ def solve_cliq_down(fg: FactorGraph, tree: BayesTree, frontal: str,
                              child_msgs=child_msgs)
 
 
+@full_precision()
 def warmup(parametric: bool = True, device=None) -> None:
     """Make the first real solve fast: on CUDA, build the row-logsumexp
     kernel; then solve the Kaess example, and with ``parametric`` its

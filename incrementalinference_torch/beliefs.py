@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from .config import full_precision
 from .manifolds import Manifold
 
 
@@ -50,6 +51,7 @@ def silverman_bw(manifold: Manifold, points: torch.Tensor,
 _LOO_MAX_POINTS = 512
 
 
+@full_precision()
 def loo_bandwidth(manifold: Manifold, points: torch.Tensor,
                   n_grid: int = 24) -> torch.Tensor:
     """Leave-one-out max-likelihood bandwidth (diagonal, shared scale).

@@ -9,9 +9,11 @@ implement yet are kept for parity and documented as such.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
+import threading
 from typing import Any
 
 import torch
@@ -121,16 +123,55 @@ def resolve_device(device=None) -> torch.device:
     """The device a graph lives on: CUDA unless the caller names another.
 
     Asking for CUDA where none is available raises; nothing falls back to
-    the CPU.  On CUDA, float32 matrix products and convolutions are pinned
-    to full IEEE precision: TF32 keeps ~3 decimal digits, which costs ~1e-2
-    in the pair-product log-weights (the JAX package uses
-    ``Precision.HIGHEST`` on every small-K product for the same reason)."""
+    the CPU.  Nothing global changes: the precision of the solves is pinned
+    by :func:`full_precision`, for their span only."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA device requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+# The pin's state, shared by every thread: the settings are the process's.
+_PIN_LOCK = threading.Lock()
+_pin = {"depth": 0, "saved": None}
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Pin float32 matrix products and cuDNN convolutions to IEEE float32
+    for the span of the ``with`` (or of a function it decorates), and give
+    the caller's settings back on exit, also when an exception leaves it.
+
+    TF32 rounds a product's inputs to 10 mantissa bits; the JAX package
+    asks for ``Precision.HIGHEST`` on every small-K product instead.  The
+    device entry points and the three functions where the JAX package asks
+    for it (``_pair_logW``, ``condense_mixture``, ``loo_bandwidth``) run
+    under this pin, so a caller's
+    ``torch.set_float32_matmul_precision("high")`` (or TF32 set any other
+    way) stays outside the solves and keeps acting on the caller's own
+    work.  Only the per-backend ``fp32_precision`` settings
+    are read and written: reading the legacy ``allow_tf32`` raises once a
+    caller has set the new ones.
+
+    The settings belong to the whole process, so the spans of all threads
+    count as one: the first to enter saves the caller's settings, the last
+    to leave gives them back, and every span in between runs pinned.  Two
+    threads inside spans at once therefore both run in IEEE, and the
+    caller's settings come back once both are done.  Spans nest the same
+    way."""
+    mm, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    with _PIN_LOCK:
+        if _pin["depth"] == 0:
+            _pin["saved"] = mm.fp32_precision, conv.fp32_precision
+        _pin["depth"] += 1
+        mm.fp32_precision = conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        with _PIN_LOCK:
+            _pin["depth"] -= 1
+            if _pin["depth"] == 0:
+                mm.fp32_precision, conv.fp32_precision = _pin["saved"]
+                _pin["saved"] = None

@@ -16,6 +16,7 @@ import torch
 
 from .. import keys as _keys
 from ..beliefs import Belief, make_belief
+from ..config import full_precision
 from ..models.factors import MODEL_REGISTRY, GenericMarginal, MetaPrior
 
 __all__ = ["propagate_belief", "local_product", "local_product_and_update",
@@ -161,6 +162,7 @@ def prepare_update(fg, target: str, factor_labels: Sequence[str],
                       specs, masks, n_out, solve_key)
 
 
+@full_precision()
 def propagate_belief(fg, target: str, factor_labels: Sequence[str],
                      key: int | None = None, solve_key: str = "default",
                      n: int | None = None) -> Tuple[Belief, torch.Tensor]:

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from .. import keys as _keys
+from ..config import full_precision
 from ..manifolds import Manifold
 from .kernels.row_lse import pair_row_logsumexp
 
@@ -96,6 +97,7 @@ def _take(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+@full_precision()
 def _pair_logW(muA, precA, muB, precB):
     """Agreement log-weights in thin-matmul form, with an optional leading
     member axis.
@@ -103,7 +105,7 @@ def _pair_logW(muA, precA, muB, precB):
     B always has one shared precision row in the cascade, so
     ivar = pA·pB/(pA+pB) depends only on (component of A, dim) and
     Σ_d ivar (a − b)² = Σ_d ivar a² + ivar·(b²)ᵀ − 2 (ivar⊙a)·bᵀ.
-    Full float32 products (TF32 is off, see config.resolve_device)."""
+    Full float32 products (pinned by config.full_precision)."""
     pB0 = precB[..., :1, :]
     both = (precA > 0) & (pB0 > 0)
     ivar = torch.where(both, precA * pB0 / torch.clamp(precA + pB0,
@@ -138,6 +140,7 @@ def pair_product_tangent(muA, precA, muB, precB, key, n_out: int):
     return (mu, prec) if batched else (mu[0], prec[0])
 
 
+@full_precision()
 def condense_mixture(mu, prec, key: int, k: int,
                      iters: int = _CONDENSE_ITERS):
     """Condense an (N, dof) mixture with a shared precision row to k
@@ -315,6 +318,7 @@ def product_cascade_tangent(tangs, precs, key, n_out: int):
     return (out, prec) if batched else (out[0], prec[0])
 
 
+@full_precision()
 def manifold_product(manifold: Manifold, proposals: Sequence[Proposal],
                      key: int, n_out: int,
                      old_points: torch.Tensor | None = None,

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..beliefs import Belief
+from ..config import full_precision
 from ..ops.kernels import row_lse as _row_lse
 from ..tree.bayestree import BayesTree, CliqStatus
 from .messages import JointMsg, LikelihoodMessage
@@ -428,6 +429,7 @@ def _phase_clock(fg, tm: dict):
     return start, stop
 
 
+@full_precision()
 def solve_tree_multihost(fg, order=None, solve_key: str = "default",
                          partition: Optional[TreePartition] = None,
                          old_tree: Optional[BayesTree] = None,
@@ -850,6 +852,7 @@ def _param_flat_layout(fg, layout) -> _FlatLayout:
     return flat
 
 
+@full_precision()
 def solve_tree_parametric_multihost(fg, order=None,
                                     partition: Optional[TreePartition] = None,
                                     timings: Optional[dict] = None):
@@ -1163,6 +1166,7 @@ def _np(x) -> np.ndarray:
         else np.asarray(x)
 
 
+@full_precision()
 def _worker_main(argv=None) -> None:
     """Entry point for one launched process: join the process group (gloo,
     meeting at the ``--store`` file; its sockets on loopback), build the

@@ -36,6 +36,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..beliefs import mean_cov as belief_mean_cov
+from ..config import full_precision
 from ..graph import FactorGraph
 from ..models.factors import (GenericMarginal, MetaPrior, Mixture,
                               residual_at, stackable_residual_params)
@@ -730,6 +731,7 @@ def _write_back(fg: FactorGraph, prob: ParametricProblem, points, cov,
     return out
 
 
+@full_precision()
 def solve_graph_parametric(fg: FactorGraph, max_iters: int = 50,
                            relinearize: int = 2, solver: str = "dense",
                            compute_cov: bool = True) -> Dict[str, dict]:
@@ -746,6 +748,7 @@ def solve_graph_parametric(fg: FactorGraph, max_iters: int = 50,
     return result
 
 
+@full_precision()
 def solve_conditionals_parametric(fg: FactorGraph,
                                   frontals: Sequence[str],
                                   separators: Sequence[str] = (),
@@ -767,6 +770,7 @@ def solve_conditionals_parametric(fg: FactorGraph,
     return result
 
 
+@full_precision()
 def autoinit_parametric(fg: FactorGraph, max_iters: int = 50) -> None:
     """Initialize parametric points variable by variable from the priors
     outward (reference autoinitParametric!, ParametricManopt.jl:497-580).

@@ -1,5 +1,6 @@
 """The port stands alone: no module of incrementalinference_torch, nor
-chip_smoke.py, imports JAX or the JAX package."""
+chip_smoke.py, the scripts of examples_torch/ or docs/gen_api_torch.py,
+imports JAX or the JAX package."""
 
 import ast
 import os
@@ -16,6 +17,11 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    examples = os.path.join(ROOT, "examples_torch")
+    for f in sorted(os.listdir(examples)):
+        if f.endswith(".py"):
+            yield os.path.join(examples, f)
+    yield os.path.join(ROOT, "docs", "gen_api_torch.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -27,6 +33,9 @@ def test_no_jax_imports_in_the_port():
     bad = []
     files = list(_sources())
     assert len(files) > 20
+    names = [os.path.relpath(f, ROOT) for f in files]
+    assert "docs/gen_api_torch.py" in names
+    assert len([n for n in names if n.startswith("examples_torch/")]) == 6
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
