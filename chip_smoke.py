@@ -44,7 +44,19 @@ Phases (any failure exits non-zero before the result line; none is caught):
    posteriors bit-equal, every _pair_logW and condense_mixture call in
    "ieee", "high" given back; the TF32 - IEEE gap of _pair_logW and
    condense_mixture on those solves' inputs, and of _pair_logW at dof 2,
-   3, 6 and 8, where the pinned call under "high" must equal IEEE;
+   3, 6 and 8, where the pinned call under "high" must equal IEEE.
+   Concurrent solves, one graph per thread (phase_threads, budget 45 s):
+   (a) two threads each build and solve the N = 50,000 two-variable graph
+   (seeds 1 and 2) on the default stream, released by one barrier: 12 + 12
+   launches, each thread's posteriors bit-equal to its graph solved alone
+   before, each thread's first row log-partitions against the plain
+   version (<= 1e-5); (d) beside them a third thread's own
+   vmap(jacfwd(f)) on a CUDA tensor, every Jacobian equal to its
+   one-thread value; (b) the same two solves, each thread on its own CUDA
+   stream, at phase 4's bars, the largest difference from alone printed;
+   (c) the two-pose SE(2) graph at N = 4,096 on one thread beside the
+   parametric LineStep(1000) dense solve on another, each at its bars and
+   bit-equal to its solve alone;
 5. the six scripts of examples_torch/ (phase_examples, budget 240 s),
    each through its main() at its bars: the fourdoor story (a four-mode
    Mixture prior seen three times along a chain; build, solve, grow,
@@ -79,7 +91,8 @@ Phases (any failure exits non-zero before the result line; none is caught):
    mixture relative (MixtureFluxModels over an 8-member conv
    SequentialNet), the forced ODE of tests/test_extensions.py:178-226 (a
    DERelative with the ramp as ``data``; one proposal for each variable
-   is counted first: its LM iterations and Jacobian passes) and a landmark
+   is counted first: its LM iterations and Jacobian passes, calls of
+   ops/convolve.py's vmap(jacrev); the solve's peak memory) and a landmark
    with a HeatmapGridDensity prior seen from a pose on R² (products at dof
    2); deepcopy_graph,
    remove_variable and a re-solve on the card, ppe_batched against ppe on
@@ -145,8 +158,9 @@ Phases (any failure exits non-zero before the result line; none is caught):
    the solve alone on a fresh graph seeded with the autoinit points
    (translation error < 2.0 against the composed step, covariance blocks
    finite, symmetric and positive definite); the time of one Jacobian of
-   the chain's relative-factor group by vmap(jacfwd) and by reverse mode
-   (they agree to 1e-3); the wide 32-branch
+   the chain's relative-factor group by vmap(jacrev) (the solver's),
+   vmap(jacfwd) and one batched backward pass (they agree to 1e-3); the
+   wide 32-branch
    forest of bench.py through solve_tree(algorithm="parametric"), fresh
    twice and re-solved (the bars of tests/test_parametric.py:139-144, the
    problems each batched LM call held); the SE(2) hexagon phase 6 solved,
@@ -438,8 +452,9 @@ def phase_linestep(it, K):
     return walls
 
 
-def _two_var_graph(it, N, device="cuda"):
-    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False), device=device)
+def _two_var_graph(it, N, device="cuda", **params):
+    fg = it.initfg(it.SolverParams(N=N, batch_cliques=False, **params),
+                   device=device)
     fg.add_variable("x0", it.ContinuousScalar)
     fg.add_factor(["x0"], it.Prior(it.Normal(0.0, 1.0)))
     fg.add_variable("x1", it.ContinuousScalar)
@@ -942,6 +957,254 @@ def phase_precision(it, K):
     return gap, cgap, gaps
 
 
+def _concurrently(*fns):
+    """Each of ``fns`` on its own thread, all released by one barrier (30 s
+    timeout); their results in order.  A thread's exception is raised here
+    and breaks the barrier, so no thread waits for one that failed; a thread
+    still running 120 s after the start fails the phase."""
+    import threading
+
+    barrier = threading.Barrier(len(fns), timeout=30)
+    out, errors = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            barrier.wait()
+            out[i] = fn()
+        except BaseException as e:             # noqa: BLE001 - re-raised
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i, fn), daemon=True)
+               for i, fn in enumerate(fns)]
+    for th in threads:
+        th.start()
+    deadline = time.time() + 120.0
+    for th in threads:
+        th.join(max(0.0, deadline - time.time()))
+    check(not any(th.is_alive() for th in threads),
+          "a thread still ran after 120 s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _on_stream(stream, fn):
+    """fn() under ``stream`` (the thread's current stream) when one is
+    given, waiting for the stream's work before returning."""
+    if stream is None:
+        return fn()
+    with torch.cuda.stream(stream):
+        out = fn()
+    stream.synchronize()
+    return out
+
+
+def phase_threads(it, K):
+    """Concurrent solves in one process, one graph per thread (budget 45 s).
+    (a) two threads each build and solve the two-variable graph at
+    N = 50,000 (seeds 1 and 2) on the default stream, released by one
+    barrier, beside a third thread running a user's own
+    ``vmap(jacfwd(f))`` loop on a CUDA tensor (d): the launches are the two alone solves' (12 + 12), each
+    thread's posteriors are bit-equal to its graph solved alone before the
+    threads start, each thread's first row log-partitions agree with the
+    plain version (<= 1e-5), and every user Jacobian equals its one-thread
+    value; (b) the same two solves, each thread under its own
+    ``torch.cuda.Stream``, at the bars of benchmarks/pallas_e2e_solve.py,
+    with the largest difference from the alone solve printed (cuBLAS
+    documents that results may differ across streams unless its workspace
+    is pinned); (c) the reverse-mode Jacobian paths: the two-pose SE(2)
+    graph at N = 4,096 on one thread while the parametric LineStep(1000)
+    dense solve runs on the other, each at its bars and bit-equal to its
+    solve alone.  Returns the launches of (a) and (b) by path."""
+    import threading
+
+    from torch.func import jacfwd, vmap
+
+    from incrementalinference_torch.canonical import generate_line_step
+    from incrementalinference_torch.manifolds import SE2
+    from incrementalinference_torch.ops import product
+
+    N = 50_000
+    t_phase = time.time()
+    wrapper = product.pair_row_logsumexp
+    stages = {}             # thread -> (inputs, output) of its first call
+
+    def recording(*args):
+        out = wrapper(*args)
+        tid = threading.get_ident()
+        if tid not in stages:
+            stages[tid] = ([a.clone() for a in args], out.clone())
+        return out
+
+    def two_var(seed, stream=None):
+        def solve():
+            fg = _two_var_graph(it, N, seed=seed)
+            it.solve_tree(fg)
+            return fg
+        return _on_stream(stream, solve)
+
+    def points(fg):
+        return [fg.points(v).clone() for v in ("x0", "x1")]
+
+    def stage_errors():
+        errs = []
+        for args, out in stages.values():
+            a2, iva, ivm = K.pair_row_terms(*args)
+            ref = K.row_logsumexp_plain(a2, iva, ivm, args[2])
+            errs.append(rel_err(out, ref))
+        return errs
+
+    seeds = (1, 2)
+    alone, alone_launches = [], []
+    for seed in seeds:                          # one after the other
+        K.reset_counts()
+        alone.append(points(two_var(seed)))
+        alone_launches.append(K.counts["launches"])
+
+    # (a) and (d)
+    def user_f(x):
+        return torch.stack([torch.sin(x[0]) * x[1], x[0] * x[0] - x[1]])
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    xu = torch.randn((1000, 2), generator=gen, device="cuda")
+    user_jac = vmap(jacfwd(user_f))
+    user_want = user_jac(xu)
+    solving, solving_lock = [len(seeds)], threading.Lock()
+
+    def solver(seed, stream=None):
+        def run():
+            try:
+                return points(two_var(seed, stream))
+            finally:
+                with solving_lock:
+                    solving[0] -= 1
+        return run
+
+    def user():
+        wrong = calls = 0
+        while solving[0] > 0 or calls < 20:
+            wrong += not torch.equal(user_jac(xu), user_want)
+            calls += 1
+        return wrong, calls
+
+    product.pair_row_logsumexp = recording
+    try:
+        K.reset_counts()
+        t0 = time.time()
+        (wrong, calls), *got = _concurrently(
+            user, *(solver(s) for s in seeds))
+        torch.cuda.synchronize()
+        wall_a = time.time() - t0
+        launches_a = K.counts["launches"]
+        errs_a = stage_errors()
+
+        streams = [torch.cuda.Stream() for _ in seeds]
+        stages.clear()
+        K.reset_counts()
+        t0 = time.time()
+        graphs = _concurrently(*(lambda s=s, st=st: two_var(s, st)
+                                 for s, st in zip(seeds, streams)))
+        torch.cuda.synchronize()
+        wall_b = time.time() - t0
+        launches_b = K.counts["launches"]
+        errs_b = stage_errors()
+    finally:
+        product.pair_row_logsumexp = wrapper
+
+    check(launches_a == sum(alone_launches),
+          f"(a) launched {launches_a} times, the solves alone "
+          f"{alone_launches}")
+    for seed, g, w in zip(seeds, got, alone):
+        check(all(torch.equal(a, b) for a, b in zip(g, w)),
+              f"(a) seed {seed}: the posteriors differ from the solve alone")
+    check(len(errs_a) == len(seeds) and max(errs_a) <= _TOL,
+          f"(a) kernel vs plain on each thread's first stage: {errs_a}")
+    check(wrong == 0, f"(d) {wrong} of {calls} user Jacobians changed")
+    print(f"PASS threads (a): two threads each built and solved the "
+          f"two-variable graph at N={N} on the default stream at once, "
+          f"{wall_a:.3f} s (alone, one after the other, before); launches "
+          f"{launches_a} = {alone_launches}; posteriors bit-equal to the "
+          f"solves alone; each thread's first row log-partitions against "
+          f"the plain version: rel err {[f'{e:.3e}' for e in errs_a]}; (d) "
+          f"a user's vmap(jacfwd) on a third thread: {calls} calls, all "
+          f"equal to the one-thread value", flush=True)
+
+    diff = 0.0
+    for seed, fg, w in zip(seeds, graphs, alone):
+        _check_two_var(fg, f"(b) seed {seed}")
+        diff = max(diff, max(float((a - b).abs().max())
+                             for a, b in zip(points(fg), w)))
+    check(len(errs_b) == len(seeds) and max(errs_b) <= _TOL,
+          f"(b) kernel vs plain on each thread's first stage: {errs_b}")
+    print(f"PASS threads (b): the same two solves, each thread on its own "
+          f"CUDA stream, {wall_b:.3f} s, at the bars of "
+          f"benchmarks/pallas_e2e_solve.py; launches {launches_b}; largest "
+          f"difference from the solves alone {diff:.3e}; kernel vs plain "
+          f"{[f'{e:.3e}' for e in errs_b]}", flush=True)
+
+    # (c) the reverse-mode Jacobian paths on two threads at once
+    M = SE2()
+
+    def se2():
+        fg, truth = _two_pose_graph(it, M, "Pose2", _SE2_STEP, _SE2_SIGMA,
+                                    4096)
+        it.solve_tree(fg)
+        torch.cuda.synchronize()
+        return fg, truth
+
+    def param():
+        fg = generate_line_step(1000, graphinit=False, device="cuda")
+        it.solve_graph_parametric(fg)
+        torch.cuda.synchronize()
+        return fg
+
+    def se2_state(fg):
+        return [fg.points(v).clone() for v in ("x0", "x1")]
+
+    def param_state(fg):
+        return [_param_points(fg),
+                torch.stack([fg.var(v).parametric_cov for v in fg.ls()])]
+
+    t0 = time.time()
+    se2_alone = se2_state(se2()[0])
+    t_se2 = time.time() - t0
+    t0 = time.time()
+    param_alone = param_state(param())
+    t_param = time.time() - t0
+    t0 = time.time()
+    (fg_se2, truth), fg_param = _concurrently(se2, param)
+    wall_c = time.time() - t0
+    stats = _check_two_pose(fg_se2, M, "(c) Pose2", truth, _SE2_SIGMA)
+    line = _param_points(fg_param)[:, 0]
+    worst = float((line - _line_truth(fg_param, "cuda")).abs().max())
+    covs = param_state(fg_param)[1][:, 0, 0]
+    check(worst < 1e-2, f"(c) LineStep(1000) parametric: max |x_i - i| "
+                        f"{worst}")
+    check(bool(torch.isfinite(covs).all() and (covs > 0).all()),
+          "(c) LineStep(1000) parametric: a covariance not finite and > 0")
+    for what, got_c, want_c in (("SE(2)", se2_state(fg_se2), se2_alone),
+                                ("parametric", param_state(fg_param),
+                                 param_alone)):
+        check(all(torch.equal(a, b) for a, b in zip(got_c, want_c)),
+              f"(c) {what}: differs from its solve alone")
+    dt = time.time() - t_phase
+    print(f"PASS threads (c): the two-pose SE(2) graph N=4096 "
+          f"(solve_tree, alone {t_se2:.3f} s) and the parametric "
+          f"LineStep(1000) dense solve (alone {t_param:.3f} s) on two "
+          f"threads at once, {wall_c:.3f} s, each bit-equal to its solve "
+          f"alone; SE(2) (dist of the Karcher mean from truth, tangent std "
+          f"/ prior std) {stats}; parametric max |x_i - i| {worst:.3e}",
+          flush=True)
+    check(dt < 45, f"phase_threads took {dt:.1f} s (budget 45 s)")
+    print(f"PASS phase_threads: {dt:.1f} s (budget 45 s)", flush=True)
+    return {f"threads (a): two two-variable N={N} solves at once, default "
+            f"stream": launches_a,
+            f"threads (b): the same, each thread on its own stream":
+            launches_b}
+
+
 def _example(name):
     """examples_torch/<name>.py, imported as a module."""
     import importlib.util
@@ -1289,6 +1552,26 @@ def _one_member(*ts):
     return [t[0] if t.dim() == 3 and t.shape[0] == 1 else t for t in ts]
 
 
+def _check_two_pose(fg, M, name, truth, sigma):
+    """The two-pose graph's bars: each pose's Karcher mean within 0.2 of
+    truth, its tangent std within (0.2, 1.5) x the prior's."""
+    stats = {}
+    for v, want in truth.items():
+        pts = fg.points(v)
+        check(bool(torch.isfinite(pts).all()), f"{name} {v}: "
+              "non-finite particles")
+        mu = M.mean(pts)
+        ratio = (M.log(mu[None, :], pts).std(0)
+                 / torch.tensor(sigma, device="cuda"))
+        stats[v] = (round(float(M.dist(mu, want)), 4),
+                    [round(float(r), 3) for r in ratio])
+        check(stats[v][0] < 0.2, f"{name} {v}: Karcher mean "
+                                 f"{stats[v][0]} from truth")
+        check(0.2 < min(stats[v][1]) and max(stats[v][1]) < 1.5,
+              f"{name} {v}: tangent std / prior std {stats[v][1]}")
+    return stats
+
+
 def phase_manifold_large(it, K, M, name, step, sigma, N):
     """The two-pose graph at a size where every product is a large pair
     product at dof 3 (SE(2)) or 6 (SE(3)).  Returns (walls, launches of the
@@ -1318,20 +1601,7 @@ def phase_manifold_large(it, K, M, name, step, sigma, N):
             launches.append(K.counts["launches"])
             check(launches[-1] > 0, f"the {name} N={N} solve never launched "
                                     f"the row_logsumexp kernel")
-            stats = {}
-            for v, want in truth.items():
-                pts = fg.points(v)
-                check(bool(torch.isfinite(pts).all()), f"{name} {v}: "
-                      "non-finite particles")
-                mu = M.mean(pts)
-                ratio = (M.log(mu[None, :], pts).std(0)
-                         / torch.tensor(sigma, device="cuda"))
-                stats[v] = (round(float(M.dist(mu, want)), 4),
-                            [round(float(r), 3) for r in ratio])
-                check(stats[v][0] < 0.2, f"{name} {v}: Karcher mean "
-                                         f"{stats[v][0]} from truth")
-                check(0.2 < min(stats[v][1]) and max(stats[v][1]) < 1.5,
-                      f"{name} {v}: tangent std / prior std {stats[v][1]}")
+            stats = _check_two_pose(fg, M, name, truth, sigma)
     finally:
         product.pair_row_logsumexp = wrapper
     check(handed and handed[0].shape == (N, M.dof),
@@ -1464,10 +1734,10 @@ def phase_forced_ode(it, K, N=50_000, steps=32):
     build_launches = K.counts["launches"]
 
     counted = {"jac": 0, "res": 0}
-    orig_jacfwd, orig_res = convolve.jacfwd, de.residual
+    orig_jacrev, orig_res = convolve.jacrev, de.residual
 
-    def jacfwd(fn, *a, **k):
-        g = orig_jacfwd(fn, *a, **k)
+    def jacrev(fn, *a, **k):
+        g = orig_jacrev(fn, *a, **k)
 
         def h(*x, **y):
             counted["jac"] += 1
@@ -1479,7 +1749,7 @@ def phase_forced_ode(it, K, N=50_000, steps=32):
         return orig_res(*a)
 
     probes = {}
-    convolve.jacfwd, de.residual = jacfwd, residual
+    convolve.jacrev, de.residual = jacrev, residual
     try:
         for target in ("x1", "x0"):
             counted.update(jac=0, res=0)
@@ -1492,14 +1762,17 @@ def phase_forced_ode(it, K, N=50_000, steps=32):
                               counted["res"] - counted["jac"],
                               round(time.time() - t0, 3))
     finally:
-        convolve.jacfwd = orig_jacfwd
+        convolve.jacrev = orig_jacrev
         del de.residual
     print(f"one DERelative proposal at N={N}, {steps} RK4 steps (cycles x "
           f"LM iterations, Jacobian passes, residual-only passes, s): "
           f"{probes}", flush=True)
 
     K.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     wall, _ = _solve_timed(it, fg)
+    peak = torch.cuda.max_memory_allocated() - base
     launches = K.counts["launches"]
     check(launches > 0, "the forced ODE N=50k solve never launched the "
                         "row_logsumexp kernel")
@@ -1510,7 +1783,9 @@ def phase_forced_ode(it, K, N=50_000, steps=32):
     print(f"PASS forced ODE N={N} ({steps} RK4 steps) solve_tree on CUDA "
           f"through the kernel: {wall:.3f} s; launches {launches} (graph "
           f"build with graphinit {build_launches}); mean x0 {m0:.4f} "
-          f"(1), x1 {m1:.4f} ({x1_truth:.4f})", flush=True)
+          f"(1), x1 {m1:.4f} ({x1_truth:.4f}); peak memory above the "
+          f"graph's {peak / 2**20:.1f} MiB (reverse mode keeps the RK4 "
+          f"steps' tape)", flush=True)
     return launches
 
 
@@ -2756,12 +3031,14 @@ def phase_param_forest(it, K, dev, branches=32):
 
 def phase_param_jacobians(it, dev, n=60):
     """What a Jacobian of the SE(3) chain's relative-factor group (n - 1
-    ManifoldFactor rows) costs: through vmap(jacfwd(..., has_aux=True)), as
-    the solver takes it, and by reverse mode with the residual's rows
-    batched on a leading axis (one backward pass), the candidate of
-    ROADMAP.md's later work.  Median milliseconds of host clock around
-    synchronized calls, and the largest difference of the two."""
-    from torch.func import jacfwd, vmap
+    ManifoldFactor rows) costs three ways: through
+    vmap(jacrev(..., has_aux=True)), as the solver takes it; through
+    vmap(jacfwd(..., has_aux=True)), the forward mode it took before its
+    Jacobians left PyTorch's process-wide forward-AD level; and by reverse
+    mode with the residual's rows batched on a leading axis (one backward
+    pass).  Median milliseconds of host clock around synchronized calls,
+    and the largest difference from the solver's."""
+    from torch.func import jacfwd, jacrev, vmap
 
     M = it.SE3()
     F, z = n - 1, M.dof
@@ -2780,9 +3057,10 @@ def phase_param_jacobians(it, dev, n=60):
         r = res(x, p1, p2, zz)
         return r, r
 
+    solver = vmap(jacrev(with_aux, has_aux=True))
     forward = vmap(jacfwd(with_aux, has_aux=True))
 
-    def reverse():
+    def batched():
         X = xl.expand(z, F, 12).clone().requires_grad_(True)
         with torch.enable_grad():
             out = res(X, a, b, meas)                           # (z, F, z)
@@ -2791,8 +3069,9 @@ def phase_param_jacobians(it, dev, n=60):
         return g.permute(1, 0, 2)
 
     times = {}
-    for name, fn in (("vmap(jacfwd)", lambda: forward(xl, a, b, meas)[0]),
-                     ("reverse", reverse)):
+    for name, fn in (("vmap(jacrev)", lambda: solver(xl, a, b, meas)[0]),
+                     ("vmap(jacfwd)", lambda: forward(xl, a, b, meas)[0]),
+                     ("batched reverse", batched)):
         fn()
         runs = []
         for _ in range(10):
@@ -2802,12 +3081,15 @@ def phase_param_jacobians(it, dev, n=60):
             torch.cuda.synchronize()
             runs.append((time.time() - t0) * 1e3)
         times[name] = (statistics.median(runs), J)
-    diff = float((times["vmap(jacfwd)"][1] - times["reverse"][1]).abs().max())
-    check(diff < 1e-3, f"the two Jacobians differ by {diff}")
+    ref = times["vmap(jacrev)"][1]
+    diffs = {k: float((v[1] - ref).abs().max()) for k, v in times.items()
+             if k != "vmap(jacrev)"}
+    check(max(diffs.values()) < 1e-3, f"the Jacobians differ by {diffs}")
     print(f"SE(3) relative-factor group Jacobian, {F} factors, on CUDA: "
-          f"vmap(jacfwd) {times['vmap(jacfwd)'][0]:.2f} ms, reverse mode "
-          f"{times['reverse'][0]:.2f} ms (median of 10); max difference "
-          f"{diff:.2e}", flush=True)
+          + ", ".join(f"{k} {v[0]:.2f} ms" for k, v in times.items())
+          + f" (median of 10); max difference from vmap(jacrev) "
+          f"{ {k: float(f'{d:.2e}') for k, d in diffs.items()} }",
+          flush=True)
 
 
 def phase_param_tree(it, K, dev, hexagon):
@@ -2899,12 +3181,13 @@ def main() -> int:
     phase_warmstart(it, K)
     phase_condense(it, K, dev)
     phase_precision(it, K)
+    threads_by_path = phase_threads(it, K)
     fd_launches = phase_examples(it, K)
     for tol in (0.0, 0.6):
         phase_growing_chain(it, "cuda", tol)
     _, hexagon, hex_tree = phase_hexagonal(it)
     phase_circular(it)
-    by_path, handed_by_path = {}, {}
+    by_path, handed_by_path = dict(threads_by_path), {}
     for M, name, step, sigma, N in _manifold_setups():
         _, n_launches, handed = phase_manifold_large(it, K, M, name, step,
                                                      sigma, N)

@@ -30,22 +30,28 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 import time
 from typing import Callable, Optional, Sequence
 
 __all__ = ["Library", "compiler_version", "add_listener"]
 
 _listeners: list[dict] = []
+# ``counts[event] += 1`` is a read and a write: threads loading at once
+# would lose counts without it
+_listeners_lock = threading.Lock()
 
 
 def add_listener(counts: dict) -> None:
     """Count every later load into ``counts`` (keys ``hits``, ``misses``)."""
-    _listeners.append(counts)
+    with _listeners_lock:
+        _listeners.append(counts)
 
 
 def _count(event: str) -> None:
-    for counts in _listeners:
-        counts[event] += 1
+    with _listeners_lock:
+        for counts in _listeners:
+            counts[event] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,14 +9,15 @@ Point storage (fixed-shape coordinate tensors):
 
 All tangent vectors are coordinate (vee) vectors; all ops broadcast over
 leading batch dimensions.  The batched Gauss-Newton differentiates through
-these functions with ``torch.func.jacfwd`` under ``vmap``, so nothing here
-writes in place or branches on data: every small-angle branch is a double
-``torch.where`` whose untaken side stays finite (the guarded divisor is 1
-where the Taylor form is taken), and derivatives stay finite at the zero
-tangent.  Scalar quantities (an angle, a norm) keep a trailing dimension
-of size one: forward-mode differentiation of a zero-dimensional tensor
-times a Python number can come back in float64, which the Gauss-Newton's
-float32 solve then refuses.
+these functions in reverse mode (``torch.func.jacrev`` under ``vmap``), so
+nothing here writes in place or branches on data: every small-angle branch
+is a double ``torch.where`` whose untaken side stays finite with a finite
+derivative (the guarded divisor is 1 where the Taylor form is taken), since
+reverse mode sends that side a zero cotangent and 0·inf is NaN; derivatives
+stay finite at the zero tangent.  Scalar quantities (an angle, a norm) keep
+a trailing dimension of size one: forward-mode differentiation of a
+zero-dimensional tensor times a Python number can come back in float64,
+which the Gauss-Newton's float32 solve then refuses.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ _EPS = 1e-8
 
 def _snorm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Gradient-safe vector norm: ``torch.linalg.norm`` has a NaN derivative
-    at exactly zero, which jacfwd hits when linearising retractions at the
-    zero tangent (the batched Gauss-Newton's base point every iteration)."""
+    at exactly zero, which the Jacobians hit when linearising retractions at
+    the zero tangent (the batched Gauss-Newton's base point every
+    iteration)."""
     return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim) + 1e-24)
 
 
@@ -340,7 +342,11 @@ class Sphere2(Manifold):
     def log(self, p, q):
         cos_t = torch.clamp(torch.sum(p * q, dim=-1, keepdim=True),
                             -1.0, 1.0)
-        t = torch.acos(cos_t)
+        # acos' is infinite at 1 (q = p): reverse mode would send the zero
+        # cotangent of the untaken branch below through it as 0·inf = NaN
+        one = cos_t >= 1.0
+        zero = torch.zeros_like(cos_t)
+        t = torch.where(one, zero, torch.acos(torch.where(one, zero, cos_t)))
         v = q - cos_t * p                                # ambient direction
         vn = torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
                          min=_EPS)

@@ -9,7 +9,7 @@ variables beyond the first two are spliced into ``f``'s parameters per
 evaluation.
 
 The residual differentiates through the fixed-step RK4 flow
-(``torch.func.jacfwd`` in the convolution), so one forward residual solves
+(``torch.func.jacrev`` in the convolution), so one forward residual solves
 any variable: x1 (the forward prediction), x0 (the reference's backward
 problem) or a parameter variable.  The backward flow map is still exposed
 (:meth:`DERelative.flow` with ``backward=True``).
@@ -37,9 +37,9 @@ def rk4_integrate(f: Callable, x0: torch.Tensor, t0: float, t1: float,
     x = x0
     for i in range(steps):
         t = t0 + i * h
-        # scaled sums as ``add(..., alpha=)``: under forward-mode AD a
-        # product with a constant takes a Python decomposition, an alpha
-        # does not (a third of the host time of a Jacobian pass)
+        # scaled sums as ``add(..., alpha=)``: under torch.func's
+        # transforms a product with a constant costs more host time than
+        # an alpha (a third of a Jacobian pass)
         k1 = f(t, x, *params)
         k2 = f(t + 0.5 * h, torch.add(x, k1, alpha=0.5 * h), *params)
         k3 = f(t + 0.5 * h, torch.add(x, k2, alpha=0.5 * h), *params)

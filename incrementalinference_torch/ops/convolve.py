@@ -2,12 +2,14 @@
 
 Counterpart of ``incrementalinference/jl_tpu/ops/convolve.py``.  All N
 particles solve at once: a damped Gauss-Newton in tangent coordinates with
-Jacobians from ``torch.func.jacfwd`` under ``torch.func.vmap`` over the
-particle axis.  Models that declare ``linear_residual`` take the
-closed-form branch (one exact step); the rest run the Levenberg-Marquardt
-accept/reject loop.  Entropy inflation is uniform tangent noise re-solved
-``inflate_cycles`` times; multihypothesis partitions are masks
-(ops/hypo.py).
+Jacobians from ``torch.func.jacrev`` under ``torch.func.vmap`` over the
+particle axis.  Reverse mode, because its transform levels are per thread
+where forward mode's dual levels are global to the process: graphs solved
+on several threads at once must not share them.  Models that declare
+``linear_residual`` take the closed-form branch (one exact step); the rest
+run the Levenberg-Marquardt accept/reject loop.  Entropy inflation is
+uniform tangent noise re-solved ``inflate_cycles`` times; multihypothesis
+partitions are masks (ops/hypo.py).
 
 :func:`eval_factor_core_batched` evaluates one factor for the B members of
 a batched clique level: every draw is made on the member's own key, as it
@@ -22,7 +24,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacrev, vmap
 
 from .. import keys as _keys
 from ..beliefs import Belief, loo_bandwidth, make_belief, spread_estimate
@@ -82,7 +84,7 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
             return residual_at(model, rest[:n_params], meas_i, *pts)
         return model.residual(meas_i, *pts)
 
-    jac = vmap(jacfwd(res, argnums=0))
+    jac = vmap(jacrev(res, argnums=0))
     resv = vmap(res)
     others = tuple(params) + tuple(others)
 

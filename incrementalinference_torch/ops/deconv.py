@@ -6,7 +6,7 @@ variables, solve per particle for the *measurement* that zeroes the
 residual.  It powers the joint "differential" up-messages and
 factor-against-data consistency checks.  All particles solve at once: a
 damped Gauss-Newton over the measurement coordinates, Jacobians from
-``torch.func.jacfwd`` under ``vmap``.
+``torch.func.jacrev`` under ``vmap``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacrev, vmap
 
 from .. import keys as _keys
 from ..beliefs import Belief, make_belief
@@ -29,7 +29,7 @@ def _solve_measurement(model, meas0: torch.Tensor, points, iters: int = 25,
     zdim = meas0.shape[-1]
     eye = torch.eye(zdim, dtype=meas0.dtype, device=meas0.device)
     res = vmap(model.residual)
-    jac = vmap(jacfwd(model.residual, argnums=0))
+    jac = vmap(jacrev(model.residual, argnums=0))
     z = meas0
     for _ in range(iters):
         r = res(z, *points)                                  # (n, resdim)

@@ -2,8 +2,8 @@
 
 Counterpart of ``incrementalinference/jl_tpu/ops/gradients.py`` (reference
 factorJacobian, FactorGradientsCached!, calcPerturbationFromVariable).  The
-Jacobians are exact ``torch.func.jacfwd`` derivatives in tangent
-coordinates.
+Jacobians are exact reverse-mode ``torch.func.jacrev`` derivatives in
+tangent coordinates.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
-from torch.func import jacfwd
+from torch.func import jacrev
 
 __all__ = ["factor_jacobian", "FactorGradientsCached",
            "calc_perturbation_from_variable"]
@@ -46,7 +46,7 @@ def factor_jacobian(fg, factor_label: str, meas=None,
         return model.residual(meas, *pts)
 
     zeros = [torch.zeros((m.dof,), device=fg.device) for m in manifolds]
-    blocks = [jacfwd(res_of_tangents, argnums=i)(*zeros)
+    blocks = [jacrev(res_of_tangents, argnums=i)(*zeros)
               for i in range(len(manifolds))]
     return torch.cat(blocks, dim=-1)
 

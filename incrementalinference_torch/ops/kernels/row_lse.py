@@ -50,6 +50,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_DOF = 8
 
 counts = {"launches": 0, "problems": 0, "calls": 0}
+#: solves on several threads count into ``counts`` at once, and ``+=`` on a
+#: dict entry is a read and a write
+_COUNTS_LOCK = threading.Lock()
 _LOCK = threading.Lock()
 _LIB = None
 #: seconds the last nvcc build took (None: loaded an existing build)
@@ -57,8 +60,9 @@ build_seconds = None
 
 
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    with _COUNTS_LOCK:
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -221,8 +225,9 @@ def _row_logsumexp_cuda(a2, iva, ivmuA, muB) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"row_logsumexp kernel launch failed: CUDA error "
                            f"{rc}")
-    counts["launches"] += 1
-    counts["problems"] += b
+    with _COUNTS_LOCK:
+        counts["launches"] += 1
+        counts["problems"] += b
     return out
 
 
@@ -233,7 +238,8 @@ def row_logsumexp(a2, iva, ivmuA, muB) -> torch.Tensor:
     device, each with an optional leading member axis B (one launch for
     all members; the result is then (B, Na)).  A CUDA input runs the
     kernel (or raises); a CPU input the plain version."""
-    counts["calls"] += 1
+    with _COUNTS_LOCK:
+        counts["calls"] += 1
     if a2.device.type == "cuda":
         return _row_logsumexp_cuda(a2, iva, ivmuA, muB)
     if a2.device.type != "cpu":

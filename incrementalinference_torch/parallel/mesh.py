@@ -30,7 +30,7 @@ import copy
 from typing import Optional, Sequence
 
 import torch
-from torch.func import jacfwd
+from torch.func import jacrev
 
 __all__ = ["Mesh", "make_mesh", "shard_particles", "replicate",
            "shard_group_arrays", "sharded_normal_equations"]
@@ -166,7 +166,7 @@ def sharded_normal_equations(mesh: Mesh, residual_fn, x: torch.Tensor,
     if not groups or any(getattr(g, "mesh", None) is not mesh
                          for g in groups):
         r = residual_fn(x.to(home))
-        J = jacfwd(residual_fn)(x.to(home))
+        J = jacrev(residual_fn)(x.to(home))
         return J.T @ J, J.T @ r
     H = g_vec = None
     for c, dev in enumerate(mesh.devices):
@@ -176,7 +176,7 @@ def sharded_normal_equations(mesh: Mesh, residual_fn, x: torch.Tensor,
         part.free_mask = prob.free_mask.to(dev)
         xc = x.to(dev)
         r = part.residuals(xc)
-        J = jacfwd(part.residuals)(xc)
+        J = jacrev(part.residuals)(xc)
         Hc, gc = (J.T @ J).to(home), (J.T @ r).to(home)
         H = Hc if H is None else H + Hc
         g_vec = gc if g_vec is None else g_vec + gc

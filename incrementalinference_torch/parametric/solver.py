@@ -6,7 +6,7 @@ solve_RLM).  The variables of a (sub)graph flatten into one tangent vector
 at per-variable linearization points, grouped by manifold type in
 first-seen order.  Factors of one structure stack into a group: their
 whitened residuals and local Jacobians come from one
-``torch.func.vmap(jacfwd(..., has_aux=True))`` over the group's factors,
+``torch.func.vmap(jacrev(..., has_aux=True))`` over the group's factors,
 and the Jacobian's columns are placed by index.  A Levenberg-Marquardt loop
 moves the tangent vector, solving the dense normal equations or, with
 ``solver="cg"``, conjugate gradients on jvp/vjp products; the covariance is
@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacrev, vmap
 
 from ..beliefs import mean_cov as belief_mean_cov
 from ..config import full_precision
@@ -382,7 +382,7 @@ class _Batch:
                 return r, r
             args = (g.params, *g.mix)
         if with_jac:
-            J, r = vmap(jacfwd(res, has_aux=True))(xl, *args, *bases)
+            J, r = vmap(jacrev(res, has_aux=True))(xl, *args, *bases)
             return r, J
         return vmap(res)(xl, *args, *bases)[0]
 

@@ -141,7 +141,11 @@ def test_range_only_builds_the_jax_examples_graph(monkeypatch):
 
 
 def test_range_only_solves_at_the_bars_of_test_solve():
-    _, out = example("range_only").main(device="cpu", n=64)
+    # at the particle count of tests/test_solve.py's solve (the default
+    # N=100): at N=64 the 85 % ring bar is met for about 8 seeds of 20, by
+    # the JAX package as by the port, so a rounding change flips it (the
+    # seeds' shares in both packages: tests/range_only_seeds.py)
+    _, out = example("range_only").main(device="cpu", n=100)
     assert out["three"]["(0,0)"] > 0.8
 
 

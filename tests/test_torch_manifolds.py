@@ -340,3 +340,51 @@ def test_batched_gauss_newton_matches_jax(case):
     pts.insert(slot, got)
     res = tmodel.residual(t(meas), *pts)
     assert float(res.abs().max()) < 1e-3
+
+
+REVERSE = dict(MANIFOLDS, Circle=(jm.Circle(), tm.Circle()))
+#: reverse mode (torch.func.jacrev, what the port's solves take) against
+#: JAX's forward mode: float32 on both sides, the rows' own error is within
+#: REV_TOL·(1 + |J|)
+REV_TOL = 1e-5
+
+
+@pytest.mark.parametrize("at", ["zero", "random"])
+@pytest.mark.parametrize("name", list(REVERSE))
+def test_reverse_jacobians_of_exp_and_log_match_jax_jacfwd(name, at):
+    """d exp(p, X)/dX and d log(p, exp(p, X))/dX by ``vmap(jacrev)`` at
+    the zero tangent (what every Gauss-Newton iteration linearises at) and
+    at random tangents, against the JAX package's ``vmap(jacfwd)``: no NaN
+    (reverse mode sends a zero cotangent into each guard's untaken side),
+    and equal within REV_TOL."""
+    from torch.func import jacrev, vmap
+
+    J, T = REVERSE[name]
+    r = rng(25)
+    ident = jnp.broadcast_to(J.identity(), (8, J.point_dim))
+    p = np.asarray(J.exp(ident, jnp.asarray(
+        (0.7 * r.standard_normal((8, J.dof))).astype(np.float32))))
+    X = (0.7 * r.standard_normal((8, J.dof))).astype(np.float32)
+    if at == "zero":
+        X[:] = 0.0
+
+    def jexp(p, X):
+        return J.exp(p, X)
+
+    def jlog(p, X):
+        return J.log(p, J.exp(p, X))
+
+    def texp(p, X):
+        return T.exp(p, X)
+
+    def tlog(p, X):
+        return T.log(p, T.exp(p, X))
+
+    for jf, tf in ((jexp, texp), (jlog, tlog)):
+        want = np.asarray(jax.vmap(jax.jacfwd(jf, argnums=1))(
+            jnp.asarray(p), jnp.asarray(X)))
+        got = vmap(jacrev(tf, argnums=1))(t(p), t(X)).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert not np.isnan(got).any()
+        err = np.abs(got - want)
+        assert np.all(err <= REV_TOL * (1.0 + np.abs(want))), err.max()
