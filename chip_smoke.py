@@ -84,6 +84,14 @@ Phases (any failure exits non-zero before the result line; none is caught):
    each pose, a ManifoldFactor between them), whose products go through the
    kernel at dof 3 and dof 6 (launches must grow; Karcher means within 0.2
    of truth, per-dof tangent std within (0.2, 1.5) x the prior's);
+   posterior estimates on those two solved graphs (phase_ppe, budget
+   60 s): every variable's lazy ppe read once, its peak device memory
+   under the chunk's bar (beliefs._KDE_CHUNK_PAIRS x 256 B) and its wall
+   printed, every estimate finite, mean = M.mean(points), max the tie
+   average of the particles of highest KDE density, mean within 0.2 of
+   truth; the chunked kde_logpdf and _ppe_core against the one-pass form
+   at SE(2) N = 8,192 (log-density within 1e-6, mean bit-equal, the same
+   particles chosen);
    LineStep(20) once more with joint up-messages (use_msg_likelihoods);
    Then the model families and the graph and tree surfaces, each solve
    through ``solve_tree`` on CUDA at N = 50,000 with the kernel's launch
@@ -1575,7 +1583,8 @@ def _check_two_pose(fg, M, name, truth, sigma):
 def phase_manifold_large(it, K, M, name, step, sigma, N):
     """The two-pose graph at a size where every product is a large pair
     product at dof 3 (SE(2)) or 6 (SE(3)).  Returns (walls, launches of the
-    warm solve, the last inputs the solve handed the kernel's wrapper)."""
+    warm solve, the last inputs the solve handed the kernel's wrapper, the
+    warm solve's graph and its truth)."""
     from incrementalinference_torch.ops import product
 
     check(N * N >= product.LARGE_PAIR_THRESHOLD,
@@ -1611,7 +1620,118 @@ def phase_manifold_large(it, K, M, name, step, sigma, N):
           f"{walls[1]:.3f} s; launches per solve {launches}; (dist of the "
           f"Karcher mean from truth, tangent std / prior std) {stats}",
           flush=True)
-    return walls, launches[-1], [t.clone() for t in handed]
+    return walls, launches[-1], [t.clone() for t in handed], (fg, truth)
+
+
+def _kde_whole(M, pts, bw):
+    """beliefs.kde_logpdf at the particles themselves in one pass, the
+    reference for its chunks: (N, N, dof) tangents at once."""
+    X = M.log(pts[None, :, :], pts[:, None, :])
+    z = X / bw
+    logk = -0.5 * torch.sum(z * z, dim=-1)
+    lognorm = (torch.sum(torch.log(bw))
+               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
+    return (torch.logsumexp(logk, dim=-1) - math.log(float(pts.shape[0]))
+            - lognorm)
+
+
+def _tie_gap(est, pts, lp):
+    """How far ``est`` lies from the average of the particles whose
+    log-density ``lp`` is the maximum, relative to max(1, |average|)
+    (several tied particles may be summed in another order); and the
+    mask of those particles."""
+    sel = lp == lp.max()
+    tie = pts[sel].mean(0)
+    return float((est - tie).abs().max() / tie.abs().max().clamp(min=1.0)), \
+        sel
+
+
+def phase_ppe(it, solved):
+    """Posterior estimates at the sizes the port solves (budget 60 s).
+
+    ``solved``: [(M, name, N, fg, truth)], the warm graphs of
+    phase_manifold_large (SE(2) N=50,000, SE(3) N=33,000), not solved
+    again.  Every variable's unread ``ppe["default"]`` is read once, its
+    peak device memory above what was held before (under
+    ``beliefs._KDE_CHUNK_PAIRS`` x ``beliefs._KDE_BYTES_PER_PAIR``) and its
+    wall printed; every estimate finite, ``mean`` bit-equal to
+    ``M.mean(points)``, ``max`` and ``suggested`` the tie average of the
+    particles of highest KDE log-density (``kde_logpdf``, 1e-6), ``mean``
+    within 0.2 of truth.  Then, for each graph, the chunked ``kde_logpdf``
+    and ``_ppe_core`` against the one-pass form on the first particles of
+    x1 (LOO bandwidth), SE(2) at 8,192 (2,048 rows a chunk, 4
+    chunks) and SE(3) at 5,000 (2 chunks; the one pass ~5 GB): each row's
+    log-density within 1e-6, ``mean`` bit-equal, the same chosen
+    particles."""
+    from incrementalinference_torch import beliefs
+
+    n_whole = {"Pose2": 8192, "Pose3": 5000}
+    t_all = time.time()
+    bar = beliefs._KDE_CHUNK_PAIRS * beliefs._KDE_BYTES_PER_PAIR
+    for M, name, N, fg, truth in solved:
+        rows = max(1, beliefs._KDE_CHUNK_PAIRS // N)
+        for v in fg.ls():
+            lazy = fg.var(v).ppe["default"]
+            check(isinstance(lazy, beliefs.LazyPPE) and not lazy._done,
+                  f"{name} {v}: the estimate was read before phase_ppe")
+            b = fg.get_belief(v)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            est = {k: lazy[k] for k in ("mean", "max", "suggested")}
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() - held
+            check(peak <= bar, f"{name} {v}: one estimate read peaked "
+                  f"{peak} B above the graph, over the bar {bar} B")
+            check(all(bool(torch.isfinite(x).all()) for x in est.values()),
+                  f"{name} {v}: a non-finite estimate")
+            check(torch.equal(est["mean"], M.mean(b.points)),
+                  f"{name} {v}: mean is not M.mean(points)")
+            err, sel = _tie_gap(est["max"], b.points,
+                                it.kde_logpdf(M, b, b.points))
+            check(err <= 1e-6 and torch.equal(est["max"], est["suggested"]),
+                  f"{name} {v}: max is {err} from the tie average of the "
+                  f"particles of highest density")
+            dist = float(M.dist(est["mean"], truth[v]))
+            check(dist < 0.2, f"{name} {v}: mean {dist} from truth")
+            print(f"PASS ppe {name} N={N} {v}: one read {wall:.3f} s, peak "
+                  f"{peak / 2**20:.1f} MiB above the graph (bar "
+                  f"{bar / 2**20:.0f} MiB; {rows} rows a chunk, "
+                  f"{-(-N // rows)} chunks); mean {dist:.4f} from truth; "
+                  f"{int(sel.sum())} particle(s) at the maximum",
+                  flush=True)
+        n = n_whole[name]
+        pts = fg.get_belief("x1").points[:n].contiguous()
+        bw = beliefs.loo_bandwidth(M, pts)
+        lp = it.kde_logpdf(M, beliefs.Belief(pts, bw, bw), pts)
+        mu, pmax = beliefs._ppe_core(M, pts, bw)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lp_whole = _kde_whole(M, pts, bw)
+        torch.cuda.synchronize()
+        peak_whole = torch.cuda.max_memory_allocated() - held
+        err = float((lp - lp_whole).abs().max())
+        gap, sel = _tie_gap(pmax, pts, lp_whole)
+        check(err <= 1e-6, f"{name} N={n}: chunked log-density {err} "
+              "from the one-pass form")
+        check(torch.equal(mu, M.mean(pts)), f"{name} N={n}: mean")
+        check(torch.equal(sel, lp == lp.max()), f"{name} N={n}: the "
+              "chunked and one-pass forms chose different particles")
+        check(gap <= 1e-6, f"{name} N={n}: max is {gap} from the "
+              "one-pass form's particle")
+        rows = max(1, beliefs._KDE_CHUNK_PAIRS // n)
+        print(f"PASS ppe chunked vs one pass, {name} N={n} ({rows} rows a "
+              f"chunk, {-(-n // rows)} chunks): log-density within "
+              f"{err:.2e}, mean bit-equal, the same {int(sel.sum())} "
+              f"particle(s) chosen; the one-pass form peaked "
+              f"{peak_whole / 2**20:.1f} MiB", flush=True)
+        del lp_whole
+    dt = time.time() - t_all
+    check(dt < 60, f"phase_ppe took {dt:.1f} s (budget 60 s)")
+    print(f"PASS phase_ppe: {dt:.1f} s (budget 60 s)", flush=True)
 
 
 def phase_joint(it):
@@ -3187,13 +3307,16 @@ def main() -> int:
         phase_growing_chain(it, "cuda", tol)
     _, hexagon, hex_tree = phase_hexagonal(it)
     phase_circular(it)
-    by_path, handed_by_path = dict(threads_by_path), {}
+    by_path, handed_by_path, solved = dict(threads_by_path), {}, []
     for M, name, step, sigma, N in _manifold_setups():
-        _, n_launches, handed = phase_manifold_large(it, K, M, name, step,
-                                                     sigma, N)
+        _, n_launches, handed, (fg, truth) = phase_manifold_large(
+            it, K, M, name, step, sigma, N)
         path = f"{name} two-pose N={N}, one solve"
         by_path[path] = n_launches
         handed_by_path[path] = (n_launches, handed)
+        solved.append((M, name, N, fg, truth))
+    phase_ppe(it, solved)
+    del solved, fg
     phase_joint(it)
     t_new = time.time()
     by_path["flux mixture N=50000 (dof 1), one solve"] = \

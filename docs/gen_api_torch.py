@@ -85,6 +85,9 @@ DEPARTURES = [
     "**Cluster sums.** `condense_mixture` sums its clusters with one-hot "
     "products, because `index_add_` on CUDA adds with atomics in an order "
     "that changes from run to run.",
+    "**Unread estimates.** `LazyPPE` reads its estimate for `!=` as for "
+    "`==`; the JAX class reads it only for `==`, so there an unread "
+    "estimate is neither `== {}` nor `!= {}` (`beliefs.LazyPPE`).",
     "**Warm start.** The pack holds the two compiled libraries (the "
     "row-logsumexp kernel and the native ordering), named by content, not "
     "XLA programs (`warmstart`, `libcache`).",

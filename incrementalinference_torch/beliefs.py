@@ -50,6 +50,19 @@ def silverman_bw(manifold: Manifold, points: torch.Tensor,
 # matrix at N=50k would be 10 GB).
 _LOO_MAX_POINTS = 512
 
+# KDE read-outs (kde_logpdf, and through it ppe and ppe_batched) take their
+# query rows, and where one row of every belief is already too many their
+# beliefs, in chunks of at most this many (query, kernel) pairs.  Eager
+# SE(3), the costliest manifold, holds about 201 B a pair at once, so a
+# chunk stays near 3.2 GiB up to N = 2^24 particles a belief (SE(2) 48 B a
+# pair, R¹ 16 B; tests/test_torch_ppe.py counts them), under
+# _KDE_BYTES_PER_PAIR a pair, the bar the tests and chip_smoke.py hold.
+# Fixed, never derived from free memory: a chunk that moved with what else
+# the process holds could move the reductions, and with them the chosen
+# particle.
+_KDE_CHUNK_PAIRS = 1 << 24
+_KDE_BYTES_PER_PAIR = 256
+
 
 @full_precision()
 def loo_bandwidth(manifold: Manifold, points: torch.Tensor,
@@ -112,14 +125,52 @@ def make_belief(manifold: Manifold, points: torch.Tensor,
 
 def kde_logpdf(manifold: Manifold, belief: Belief,
                query: torch.Tensor) -> torch.Tensor:
-    """log p(query) under the Gaussian-kernel KDE.  query: (Q, point_dim)."""
-    X = manifold.log(belief.points[None, :, :], query[:, None, :])
-    z = X / belief.bw
-    logk = -0.5 * torch.sum(z * z, dim=-1)                     # (Q, N)
-    lognorm = (torch.sum(torch.log(belief.bw))
-               + 0.5 * belief.bw.shape[-1] * math.log(2.0 * math.pi))
-    n = belief.points.shape[0]
-    return torch.logsumexp(logk, dim=-1) - math.log(float(n)) - lognorm
+    """log p(query) under the Gaussian-kernel KDE.  query: (Q, point_dim);
+    ``belief.points`` may carry leading batch dimensions (..., N,
+    point_dim), with ``query`` (..., Q, point_dim) and ``belief.bw``
+    (..., dof) beside them.
+
+    The query rows go through in chunks of at most ``_KDE_CHUNK_PAIRS``
+    (query, kernel) pairs, each row by the same expressions as a whole
+    pass, so the read holds one chunk's tangents, never the (Q, N, dof)
+    tensor.  Where one row of every batch entry is more than a chunk, the
+    entries go through in groups, each group in row chunks of its own; only
+    a single belief of more than ``_KDE_CHUNK_PAIRS`` particles goes past
+    the chunk (one row at a time)."""
+    points, bw = belief.points, belief.bw
+    n = points.shape[-2]
+    lead = torch.broadcast_shapes(points.shape[:-2], query.shape[:-2],
+                                  bw.shape[:-1])
+    if math.prod(lead) > 1 and math.prod(lead) * n > _KDE_CHUNK_PAIRS:
+        g = max(1, _KDE_CHUNK_PAIRS // n)
+        pf = points.expand(lead + points.shape[-2:]).reshape(
+            (-1,) + points.shape[-2:])
+        qf = query.expand(lead + query.shape[-2:]).reshape(
+            (-1,) + query.shape[-2:])
+        bf = bw.expand(lead + bw.shape[-1:]).reshape(-1, bw.shape[-1])
+        lp = [kde_logpdf(manifold, Belief(pf[i:i + g], bf[i:i + g],
+                                          bf[i:i + g]), qf[i:i + g])
+              for i in range(0, pf.shape[0], g)]
+        return torch.cat(lp).reshape(lead + query.shape[-2:-1])
+    step = max(1, _KDE_CHUNK_PAIRS // max(math.prod(lead) * n, 1))
+    P, B = points[..., None, :, :], bw[..., None, None, :]
+    # an empty query still makes one (empty) chunk, for the result's shape
+    lse = [_kde_row_lse(manifold, P, B, query[..., r:r + step, None, :])
+           for r in range(0, query.shape[-2], step) or (0,)]
+    lognorm = (torch.sum(torch.log(bw), dim=-1)
+               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
+    return torch.cat(lse, dim=-1) - math.log(float(n)) - lognorm[..., None]
+
+
+def _kde_row_lse(manifold: Manifold, P: torch.Tensor, B: torch.Tensor,
+                 q: torch.Tensor) -> torch.Tensor:
+    """One chunk of :func:`kde_logpdf`: the kernels' logsumexp at query
+    rows ``q`` (..., rows, 1, point_dim).  A function of its own, so the
+    chunk's tangents are freed before the next chunk's are made."""
+    X = manifold.log(P, q)
+    z = X / B
+    logk = -0.5 * torch.sum(z * z, dim=-1)                    # (..., rows, N)
+    return torch.logsumexp(logk, dim=-1)
 
 
 def kde_sample(manifold: Manifold, belief: Belief, gen: torch.Generator,
@@ -142,15 +193,10 @@ def mean_cov(manifold: Manifold, points: torch.Tensor):
 
 def _ppe_core(manifold: Manifold, pts: torch.Tensor, bw: torch.Tensor):
     """Karcher mean and max-density particle of particle sets
-    ``pts`` (..., N, point_dim) with bandwidths ``bw`` (..., dof)."""
+    ``pts`` (..., N, point_dim) with bandwidths ``bw`` (..., dof); the KDE
+    at the particles streams through :func:`kde_logpdf`'s chunks."""
     mu = manifold.mean(pts)
-    X = manifold.log(pts[..., None, :, :], pts[..., :, None, :])
-    z = X / bw[..., None, None, :]
-    logk = -0.5 * torch.sum(z * z, dim=-1)                     # (..., Q, N)
-    lognorm = (torch.sum(torch.log(bw), dim=-1)
-               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
-    lp = (torch.logsumexp(logk, dim=-1) - math.log(float(pts.shape[-2]))
-          - lognorm[..., None])
+    lp = kde_logpdf(manifold, Belief(points=pts, bw=bw, ipc=bw), pts)
     sel = (lp == torch.amax(lp, dim=-1, keepdim=True)).to(pts.dtype)
     pmax = ((sel[..., None] * pts).sum(-2)
             / torch.clamp(sel.sum(-1), min=1.0)[..., None])
@@ -183,7 +229,10 @@ def is_partial(belief: Belief) -> bool:
 
 class LazyPPE(dict):
     """calcPPE result computed on first access (the JAX package's LazyPPE):
-    solves that never read an estimate never pay for its N×N KDE."""
+    solves that never read an estimate never pay for its N×N KDE.  A
+    comparison, a pickle or a deepcopy reads it, as in the JAX package;
+    ``!=`` reads it too, where the JAX class compares its still-empty dict
+    (there an unread estimate is neither ``== {}`` nor ``!= {}``)."""
 
     def __init__(self, manifold: Manifold, belief: Belief):
         super().__init__()
@@ -231,6 +280,22 @@ class LazyPPE(dict):
     def __repr__(self):
         self._force()
         return dict.__repr__(self)
+
+    def __eq__(self, other):
+        self._force()
+        return dict.__eq__(self, other)
+
+    def __ne__(self, other):
+        self._force()
+        return dict.__ne__(self, other)
+
+    __hash__ = None
+
+    def __reduce__(self):
+        # pickle and deepcopy take the estimate as a plain dict, not the
+        # belief it is computed from
+        self._force()
+        return (dict, (dict(self),))
 
 
 def spread_estimate(manifold: Manifold, points_a: torch.Tensor,

@@ -733,12 +733,15 @@ def _write_back(fg: FactorGraph, prob: ParametricProblem, points, cov,
 
 @full_precision()
 def solve_graph_parametric(fg: FactorGraph, max_iters: int = 50,
-                           relinearize: int = 2, solver: str = "dense",
+                           relinearize: int = 2,
+                           init_from_belief: bool = True,
+                           solver: str = "dense",
                            compute_cov: bool = True) -> Dict[str, dict]:
     """Whole-graph parametric solve (reference solveGraphParametric!,
     ParametricManopt.jl:588-613) on the graph's device.  Returns
     ``{label: {"point", "cov"}, "_cost": cost}`` and sets each variable's
-    ``parametric_point``, ``parametric_cov`` and ``ppe["parametric"]``."""
+    ``parametric_point``, ``parametric_cov`` and ``ppe["parametric"]``.
+    ``init_from_belief`` is accepted and ignored, as in the JAX package."""
     prob = ParametricProblem(fg)
     points, cov, cost = prob.solve(max_iters=max_iters,
                                    relinearize=relinearize,
