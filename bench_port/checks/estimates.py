@@ -1,0 +1,44 @@
+"""The estimates the timed ``set_ppe`` reads returned, against the
+reference's Karcher mean and highest-density particle of the same
+particles, with the bandwidth worked out again, all in float64.
+
+``ppe_mean_gap``: the mean's tangent distance from the reference's, in
+reference bandwidths (max over the dimensions).  ``ppe_max_gap``: how far
+the returned max's reference log-density lies below the reference's best
+particle's."""
+
+from __future__ import annotations
+
+import torch
+
+from . import worst
+from ..reference import kde
+from ..reference.manifolds import by_name
+
+
+def judge(records, ctx, source):
+    cfg = ctx["cfg"]
+    M = by_name(cfg["manifold"], cfg["dof"])
+    mean_gap = max_gap = None
+    for rec in records:
+        for lbl in rec["meas"]["labels"]:
+            b = rec["beliefs"].get(lbl)
+            est = (rec.get("ppe") or {}).get(lbl)
+            if b is None or est is None:
+                mean_gap = max_gap = float("nan")
+                continue
+            pts = b[0].detach()
+            bw = kde.loo_bandwidth(M, pts)
+            mean_r, _, lp = kde.estimates(M, pts, bw)
+            if source == "program":
+                mean_o, max_o = est["mean"], est["max"]
+            else:
+                mean_o, max_o, _ = kde.estimates(
+                    M, pts, kde.loo_bandwidth(M, pts, source), source)
+            mean_o = mean_o.detach().double().reshape(-1)
+            max_o = max_o.detach().double().reshape(1, -1)
+            mean_gap = worst(mean_gap, float(
+                (M.log(mean_r, mean_o) / bw).abs().max()))
+            max_gap = worst(max_gap, float(
+                lp.max() - kde.logdensity(M, pts, bw, max_o)[0]))
+    return {"ppe_mean_gap": mean_gap, "ppe_max_gap": max_gap}, {}

@@ -1,0 +1,10 @@
+"""Milliseconds a step spends in the harness's ``ppe`` span, totalled
+over the window's steps and divided by their number (the profiled steps
+left out where there are others)."""
+
+
+def read(ctx):
+    spans = ctx["spans"].get("ppe") or []
+    if not spans:
+        return None
+    return 1e3 * sum(spans) / len(spans)
