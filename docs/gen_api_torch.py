@@ -59,6 +59,7 @@ MODULES = [
     ("Warm start of the compiled libraries (`warmstart`)", f"{P}.warmstart"),
     ("The row-logsumexp kernel (`ops.kernels.row_lse`)",
      f"{P}.ops.kernels.row_lse"),
+    ("Spans and counters (`tracing`)", f"{P}.tracing"),
 ]
 
 DEPARTURES = [

@@ -17,6 +17,7 @@ from .beliefs import (Belief, kde_logpdf, kde_sample, make_belief, mean_cov,
                       ppe)
 from . import canonical
 from . import debugging
+from . import tracing
 from . import serialization
 from .canonical import (fourdoor_sequence, generate_caesar_ring1d,
                         generate_euclid_distance, generate_hexagonal,

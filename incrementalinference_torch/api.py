@@ -12,6 +12,7 @@ import os
 import time
 from typing import Dict, List, Optional, Sequence
 
+from . import tracing
 from .beliefs import Belief, ppe as calc_ppe
 from .canonical import generate_kaess
 from .config import full_precision, resolve_device
@@ -32,6 +33,12 @@ __all__ = ["solve_tree", "solve_graph", "solve_cliq_up", "solve_cliq_down",
 logger = logging.getLogger(__name__)
 
 
+def _graph_device(fg, *args, **kwargs):
+    """The device of a root span: the graph's."""
+    return fg.device
+
+
+@tracing.spanned("set_ppe", device=_graph_device)
 def set_ppe(fg: FactorGraph, label: str, solve_key: str = "default") -> dict:
     """Compute and store one variable's posterior point estimate from its
     current belief (reference setPPE!).  Returns the stored dict (mean, max,
@@ -59,6 +66,7 @@ def fifo_freeze(fg: FactorGraph) -> List[str]:
 
 
 @full_precision()
+@tracing.spanned("solve_tree", device=_graph_device)
 def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                solve_key: str = "default", store_old: bool = False,
                up: Optional[bool] = None, down: Optional[bool] = None,
@@ -112,10 +120,11 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
     if algorithm != "default":
         raise ValueError(f"unknown algorithm {algorithm!r}")
     params = fg.params
-    t0 = time.time()
+    t0 = time.perf_counter()
     ensure_solvable(fg)
     if params.graphinit:
-        init_all(fg, solve_key=solve_key)
+        with tracing.span("graphinit"):
+            init_all(fg, solve_key=solve_key)
     if store_old:
         snap = f"{solve_key}_{fg.solve_count}"
         for v in fg.variables.values():
@@ -129,7 +138,8 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
                     f"N={v.N} must divide the mesh size "
                     f"{len(mesh.devices)} for particle sharding")
 
-    tree = build_tree_reset(fg, order=order, old_tree=old_tree)
+    with tracing.span("tree"):
+        tree = build_tree_reset(fg, order=order, old_tree=old_tree)
     if precompile:
         from .parallel.precompile import (precompile_processes,
                                           precompile_updates)
@@ -171,28 +181,31 @@ def solve_tree(fg: FactorGraph, old_tree: Optional[BayesTree] = None,
             v.solved_count[solve_key] = v.get_solved_count(solve_key) + 1
     fg.solve_count += 1
     if verbose:
-        logger.info("solve_tree done in %.3fs", time.time() - t0)
+        logger.info("solve_tree done in %.3fs", time.perf_counter() - t0)
     return tree
 
 
 def _write_history(logpath: str, solve: int, traces: dict) -> None:
     """The solve-wide trace dump (reference HistoryCSMAll.txt) and one
-    appended log per clique (reference logpath/logs/cliqN/log.txt).  A
-    directory that cannot be written costs a warning, not the solve."""
+    appended log per clique (reference logpath/logs/cliqN/log.txt), each
+    event stamped in wall-clock seconds.  A directory that cannot be
+    written costs a warning, not the solve."""
     try:
         os.makedirs(logpath, exist_ok=True)
         with open(os.path.join(logpath, f"HistoryAll_{solve}.txt"),
                   "w") as fp:
             for cid, tr in sorted(traces.items()):
                 for ts, step, detail in tr.events:
-                    fp.write(f"{ts:.3f}\tcliq{cid}\t{step}\t{detail}\n")
+                    fp.write(f"{tracing.wall_time(ts):.3f}\tcliq{cid}\t"
+                             f"{step}\t{detail}\n")
         for cid, tr in sorted(traces.items()):
             cliqdir = os.path.join(logpath, "logs", f"cliq{cid}")
             os.makedirs(cliqdir, exist_ok=True)
             with open(os.path.join(cliqdir, "log.txt"), "a") as fp:
                 fp.write(f"# solve {solve}\n")
                 for ts, step, detail in tr.events:
-                    fp.write(f"{ts:.3f}\t{step}\t{detail}\n")
+                    fp.write(f"{tracing.wall_time(ts):.3f}\t{step}\t"
+                             f"{detail}\n")
     except OSError:
         logger.warning("could not write the trace dump to %s", logpath)
 

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import tracing
 from .config import full_precision
 from .manifolds import Manifold
 
@@ -65,6 +66,8 @@ _KDE_BYTES_PER_PAIR = 256
 
 
 @full_precision()
+@tracing.spanned("bandwidth",
+                 lambda manifold, points, *a, **k: {"N": points.shape[-2]})
 def loo_bandwidth(manifold: Manifold, points: torch.Tensor,
                   n_grid: int = 24) -> torch.Tensor:
     """Leave-one-out max-likelihood bandwidth (diagonal, shared scale).
@@ -123,6 +126,8 @@ def make_belief(manifold: Manifold, points: torch.Tensor,
                   ipc=torch.as_tensor(ipc, device=points.device))
 
 
+@tracing.spanned("kde_logpdf", lambda manifold, belief, query: {
+    "N": belief.points.shape[-2], "Q": query.shape[-2]})
 def kde_logpdf(manifold: Manifold, belief: Belief,
                query: torch.Tensor) -> torch.Tensor:
     """log p(query) under the Gaussian-kernel KDE.  query: (Q, point_dim);

@@ -17,6 +17,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from . import keys as _keys
+from . import tracing
 from .beliefs import Belief, make_belief
 from .config import SolverParams, resolve_device
 from .manifolds import Circle, Euclidean, Manifold
@@ -167,6 +168,7 @@ class FactorGraph:
         self._key_ctr = 0
 
     # -- construction -----------------------------------------------------
+    @tracing.spanned("add_variable", device=lambda self, *a, **k: self.device)
     def add_variable(self, label: str, vartype: VariableType,
                      N: int | None = None, tags: Iterable[str] = (),
                      solvable: int = 1) -> Variable:
@@ -180,6 +182,7 @@ class FactorGraph:
         self._var_factors[label] = []
         return v
 
+    @tracing.spanned("add_factor", device=lambda self, *a, **k: self.device)
     def add_factor(self, variables: Sequence[str], model: Any,
                    multihypo: Optional[Sequence[float]] = None,
                    nullhypo: float = 0.0, label: str | None = None,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import keys as _keys
+from . import tracing
 from .beliefs import Belief, LazyPPE
 from .models.factors import GenericMarginal, MetaPrior
 from .ops.graphops import propagate_belief
@@ -41,6 +42,7 @@ def factor_can_init(fg, factor_label: str, target: str,
     return True
 
 
+@tracing.spanned("graphinit", lambda fg, label, *a, **k: {"variable": label})
 def doautoinit(fg, label: str, solve_key: str = "default") -> bool:
     """Initialize ``label`` from its usable neighbor factors if possible
     (reference doautoinit!); keeps a copy under the "graphinit" key."""

@@ -27,6 +27,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from .. import keys as _keys
+from .. import tracing
 from ..beliefs import Belief, loo_bandwidth, make_belief, spread_estimate
 from ..manifolds import Manifold
 from ..models.factors import residual_at, stackable_residual_params
@@ -99,6 +100,7 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
 
     lam0 = torch.full((x0.shape[0],), damping, dtype=dt, device=dev)
     if linear:
+        tracing.count("jacobian_passes")
         return gn_step(x0, lam0)[0]
 
     x, lam = x0, lam0
@@ -111,6 +113,7 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
         x = torch.where(ok[:, None], x_new, x)
         lam = torch.where(ok, torch.clamp(lam / 3.0, min=damping),
                           torch.clamp(lam * 10.0, max=1e8))
+    tracing.count("jacobian_passes", iters)         # one an LM iteration
     return x
 
 
@@ -290,6 +293,11 @@ def _solve_particles(manifold, models, meas, others, x0, sf_slot,
     return torch.cat([p.to(x0.device) for p in parts])
 
 
+@tracing.spanned("convolve", lambda manifold, models, keys, var_points, spec,
+                 *a, **k: {"factor": type(models[0]).__name__,
+                           "members": len(models), "dof": manifold.dof,
+                           "N": var_points[spec.sfidx].shape[1],
+                           "prior": spec.is_prior})
 def eval_factor_core_batched(manifold: Manifold, models, keys,
                              var_points: Tuple[torch.Tensor, ...],
                              spec: ConvSpec, mesh=None) -> torch.Tensor:

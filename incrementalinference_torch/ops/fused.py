@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from .. import keys as _keys
+from .. import tracing
 from ..beliefs import Belief, loo_bandwidth
 from ..manifolds import Manifold
 from .convolve import ConvSpec, eval_factor_core_batched
@@ -52,6 +53,9 @@ def product_traceable(manifold: Manifold, pts_list, bw_list,
     return out if batched else out[0]
 
 
+@tracing.spanned("product", lambda manifold, pts_list, bw_list, static_masks,
+                 old_points, keys, n_out: {"densities": len(pts_list),
+                                           "members": len(keys), "N": n_out})
 def _product_members(manifold, pts_list, bw_list, static_masks, old_points,
                      keys, n_out):
     D = len(pts_list)
@@ -112,6 +116,9 @@ def _make_update_batched(manifold: Manifold, specs: Tuple[ConvSpec, ...],
     members' models; ``var_points_nested`` per factor its variables'
     points (B, N, pd); ``old_points`` (B, N, pd); ``keys`` B ints.
     Returns (points (B, n_out, pd), bw (B, dof))."""
+    @tracing.spanned("update", lambda models, var_points_nested, old_points,
+                     keys: {"members": len(keys), "N": n_out,
+                            "factors": len(specs)})
     def update(models, var_points_nested, old_points, keys):
         F = len(specs)
         ks = [_keys.split(k, F + 1) for k in keys]
@@ -181,6 +188,8 @@ def fused_variable_update_batched(plans, keys, mesh=None):
     return fn(models, nested, old, list(keys))
 
 
+@tracing.spanned("gibbs", lambda direct_steps, iter_steps, n_rounds, *a,
+                 **k: {"rounds": n_rounds})
 def fused_clique_gibbs(direct_steps, iter_steps, n_rounds: int,
                        models_direct, models_iter, store, key: int,
                        mesh=None):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import keys as _keys
+from .. import tracing
 from ..beliefs import Belief, make_belief
 from ..config import full_precision
 from ..models.factors import MODEL_REGISTRY, GenericMarginal, MetaPrior
@@ -190,6 +191,7 @@ def local_product(fg, target: str, key: int | None = None,
                             solve_key=solve_key, n=n)
 
 
+@tracing.spanned("update", lambda fg, target, *a, **k: {"variable": target})
 def local_product_and_update(fg, target: str, key: int | None = None,
                              solve_key: str = "default") -> Belief:
     """Product + write-back (reference localProductAndUpdate!)."""

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from .. import keys as _keys
+from .. import tracing
 from ..config import full_precision
 from ..manifolds import Manifold
 from .kernels.row_lse import pair_row_logsumexp
@@ -319,6 +320,8 @@ def product_cascade_tangent(tangs, precs, key, n_out: int):
 
 
 @full_precision()
+@tracing.spanned("product", lambda manifold, proposals, key, n_out, *a, **k: {
+    "densities": len(proposals), "N": n_out})
 def manifold_product(manifold: Manifold, proposals: Sequence[Proposal],
                      key: int, n_out: int,
                      old_points: torch.Tensor | None = None,

@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from .. import tracing
 from ..beliefs import Belief, make_belief
 from ..manifolds import Euclidean
 from ..models.factors import MsgPrior, MsgRelativeLikelihood
@@ -51,6 +52,7 @@ class LikelihoodMessage:
     has_priors: bool = False
 
 
+@tracing.spanned("message")
 def add_msg_factors(subfg, msg: LikelihoodMessage) -> List[str]:
     """Insert a message into a clique subgraph as factors (reference
     addMsgFactors!).
@@ -213,6 +215,7 @@ def generate_msg_joint(subfg, clique, solve_key: str = "default",
     return jm
 
 
+@tracing.spanned("message")
 def prep_msg_up(subfg, clique, status: CliqStatus,
                 solve_key: str = "default") -> LikelihoodMessage:
     """Separator beliefs → up message (reference prepCliqueMsgUp); a
@@ -232,6 +235,7 @@ def prep_msg_up(subfg, clique, status: CliqStatus,
     return msg
 
 
+@tracing.spanned("message")
 def prep_msg_down(subfg, clique, child, status: CliqStatus,
                   solve_key: str = "default") -> LikelihoodMessage:
     """Beliefs of a child's separator vars → down message."""

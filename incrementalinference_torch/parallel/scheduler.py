@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import keys as _keys
+from .. import tracing
 from ..beliefs import Belief, LazyPPE
 from ..graph import FactorGraph, Variable
 from ..graphinit import doautoinit
@@ -73,20 +74,25 @@ logger = logging.getLogger(__name__)
 @dataclass
 class CliqueTrace:
     """Per-clique record of the steps a solve took (the reference's CSM
-    history): ``events`` are (time, step, detail).  With
+    history): ``events`` are (time, step, detail), the time in seconds on
+    the tracing recorder's clock (``time.perf_counter``; the history files
+    give it as wall-clock seconds, ``tracing.wall_time``).  With
     ``record_cliques`` the sweep also keeps the up-solve's child messages,
     the incoming down message and the clique subgraph (its tensors shared,
     not copied), for replay (reference repeatCSMStep!,
-    getCliqSubgraphFromHistory)."""
+    getCliqSubgraphFromHistory).  A trace with ``keep`` False, which a
+    solve without ``record_cliques`` hands its cliques, records nothing."""
 
     cid: int
     events: List[Tuple[float, str, str]] = field(default_factory=list)
     child_msgs: Optional[List[LikelihoodMessage]] = None
     down_msg: Optional[LikelihoodMessage] = None
     subfg: Optional[FactorGraph] = None
+    keep: bool = True
 
     def log(self, step: str, detail: str = "") -> None:
-        self.events.append((time.time(), step, detail))
+        if self.keep:
+            self.events.append((time.perf_counter(), step, detail))
 
 
 def _belief_on(b: Belief, device) -> Belief:
@@ -306,6 +312,8 @@ def _cycle_init_by_var_order(sub: FactorGraph, clique: Clique,
     return all_init()
 
 
+@tracing.spanned("gibbs", lambda sub, variables, iters, *a, **k: {
+    "rounds": iters})
 def _gibbs_solve(sub: FactorGraph, variables: List[str], iters: int,
                  solve_key: str = "default") -> None:
     """Per-variable Gibbs: each variable's product over all its factors,
@@ -409,6 +417,8 @@ def _solve_clique_vars(sub: FactorGraph, direct: List[str],
         _gibbs_solve(sub, iter_vars, sub.params.gibbs_iters, solve_key)
 
 
+@tracing.spanned("clique.up", lambda fg, tree, clique, *a, **k: {
+    "cid": clique.cid})
 def up_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                     child_msgs: List[LikelihoodMessage],
                     solve_key: str = "default",
@@ -421,7 +431,8 @@ def up_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
     device = fg.device if device is None else torch.device(device)
     child_msgs = [_msg_on(m, device) for m in child_msgs]
     return _msg_on(_up_solve(fg, clique, child_msgs, solve_key,
-                             trace or CliqueTrace(clique.cid), device, mesh),
+                             trace or CliqueTrace(clique.cid, keep=False),
+                             device, mesh),
                    fg.device)
 
 
@@ -471,6 +482,8 @@ def _up_solve(fg: FactorGraph, clique: Clique,
     return msg
 
 
+@tracing.spanned("clique.down", lambda fg, tree, clique, *a, **k: {
+    "cid": clique.cid})
 def down_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
                       down_msg: Optional[LikelihoodMessage],
                       solve_key: str = "default",
@@ -481,7 +494,7 @@ def down_solve_clique(fg: FactorGraph, tree: BayesTree, clique: Clique,
     of solveCliqDownFrontalProducts!).  The children's up messages stay
     attached, as in the reference's down phase.  Returns the down messages
     for each child.  ``mesh`` as in :func:`up_solve_clique`."""
-    t = trace or CliqueTrace(clique.cid)
+    t = trace or CliqueTrace(clique.cid, keep=False)
     sub = build_clique_subgraph(fg, clique)
     if clique.is_marginalized:
         t.log("marginalized", "skip down-solve")
@@ -617,6 +630,8 @@ def _find_up_segments(fg: FactorGraph, tree: BayesTree, skip_set,
     return segments
 
 
+@tracing.spanned("segment.up", lambda fg, tree, chain, *a, **k: {
+    "cids": [cl.cid for cl in chain]})
 def up_solve_segment(fg: FactorGraph, tree: BayesTree, chain: List[Clique],
                      bottom_msgs: List[LikelihoodMessage], solve_key: str,
                      trace_for) -> Optional[Dict[int, LikelihoodMessage]]:
@@ -740,6 +755,8 @@ def _lockstep_gibbs(fg: FactorGraph, subs: Dict[int, FactorGraph],
                                      bw=bw_b[b], ipc=plan.ipc())
 
 
+@tracing.spanned("level.up", lambda fg, tree, cliques, *a, **k: {
+    "cids": [cl.cid for cl in cliques]})
 def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
                    child_msgs_of: Dict[int, List[LikelihoodMessage]],
                    solve_key: str = "default",
@@ -754,7 +771,7 @@ def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
     active: List[Clique] = []
     subs: Dict[int, FactorGraph] = {}
     for cl in cliques:
-        t = traces.get(cl.cid) or CliqueTrace(cl.cid)
+        t = traces.get(cl.cid) or CliqueTrace(cl.cid, keep=False)
         if cl.is_marginalized or (cl.is_recycled and
                                   cl.status == CliqStatus.UPRECYCLED):
             t.log("recycle", "skip up-solve")
@@ -789,7 +806,7 @@ def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
             _lockstep_gibbs(fg, subs, active, solve_key)
 
     for cl in active:
-        t = traces.get(cl.cid) or CliqueTrace(cl.cid)
+        t = traces.get(cl.cid) or CliqueTrace(cl.cid, keep=False)
         cl.status = CliqStatus.UPSOLVED
         out[cl.cid] = prep_msg_up(subs[cl.cid], cl, CliqStatus.UPSOLVED,
                                   solve_key)
@@ -1050,7 +1067,7 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
     def trace_for(cid: int) -> CliqueTrace:
         if record:
             return traces.setdefault(cid, CliqueTrace(cid))
-        return CliqueTrace(cid)
+        return CliqueTrace(cid, keep=False)
 
     def failed(cl: Clique, tr: CliqueTrace, e: Exception) -> None:
         cl.status = CliqStatus.ERROR_STATUS
@@ -1214,7 +1231,8 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
         return down_inited
 
     if up:
-        run_up()
+        with tracing.span("sweep.up"):
+            run_up()
     if down and not up:
         # down-only solve: every clique must carry a previous solution
         for cl in tree.cliques.values():
@@ -1230,7 +1248,8 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
     if down:
         limit = max(1, int(fg.params.limit_treeinit_iters))
         for _ in range(limit):
-            down_inited = run_down()
+            with tracing.span("sweep.down"):
+                down_inited = run_down()
             if not down_inited or not up or errors:
                 break
             affected: set = set()
@@ -1239,7 +1258,10 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                 while cur is not None and cur not in affected:
                     affected.add(cur)
                     cur = tree.clique(cur).parent
-            run_up(affected)
+            with tracing.span("sweep.up") as sp:
+                if sp is not None:
+                    sp.attrs["reup"] = len(affected)
+                run_up(affected)
         still = [c.cid for c in tree.cliques.values()
                  if c.status == CliqStatus.NO_INIT]
         if still:

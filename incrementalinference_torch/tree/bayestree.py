@@ -234,7 +234,7 @@ def build_tree(fg, order: Optional[Sequence[str]] = None,
     """Elimination → Bayes net → Bayes tree + potentials + partitions
     (reference buildTreeFromOrdering!; Kaess Alg. 2 over the reversed
     order)."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     if order is None:
         order = get_elimination_order(fg, method or fg.params.ordering)
     order = list(order)
@@ -267,7 +267,7 @@ def build_tree(fg, order: Optional[Sequence[str]] = None,
 
     _assign_potentials(fg, tree)
     _partition_gibbs_vars(fg, tree)
-    tree.build_time = time.time() - t0
+    tree.build_time = time.perf_counter() - t0
     return tree
 
 
