@@ -92,6 +92,26 @@ DEPARTURES = [
     "**Warm start.** The pack holds the two compiled libraries (the "
     "row-logsumexp kernel and the native ordering), named by content, not "
     "XLA programs (`warmstart`, `libcache`).",
+    "**The convolution's CUDA graphs.** Where the JAX package jits the LM "
+    "solve, the port (`ops.convolve.batched_gauss_newton`) solves eagerly "
+    "at a signature's first call on the card, captures the whole solve as "
+    "a CUDA graph at its second and replays it after, one cache a thread "
+    "(`GRAPH_CACHE_SIZE` signatures, `solve_signature`). A capture waits "
+    "for a call on a lone Python thread, since another thread's work on "
+    "the device (a synchronize, a launch on the default stream) would "
+    "break it; so in practice only the main thread captures, and a "
+    "process with other threads alive (a Jupyter or IPython kernel, "
+    "`debugging.draw_tree_async_loop`, a thread pool) solves eagerly and "
+    "is warned once. Each call counts "
+    "once under `conv_graph_replays`, `conv_graph_captures` or "
+    "`conv_eager_solves` (`tracing`). A CPU tensor, a model outside "
+    "`MODEL_REGISTRY` or whose residual parameters do not stack, and the "
+    "mesh split of the particles over several devices solve eagerly. The "
+    "damped normal equations go to `torch.linalg.solve_ex` with no check "
+    "on the host, so no LM iteration waits for the device: a step that is "
+    "not finite (a singular system) is rejected, in the LM loop and in "
+    "the `linear` branch alike (the JAX package's `linear` branch keeps "
+    "no such guard).",
 ]
 
 

@@ -21,21 +21,29 @@ axis (the draws are made on the full N first) and gathered back.
 
 from __future__ import annotations
 
+import collections
+import functools
+import threading
+import warnings
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import jacrev, vmap
 
 from .. import keys as _keys
 from .. import tracing
 from ..beliefs import Belief, loo_bandwidth, make_belief, spread_estimate
+from ..distributions import Distribution
 from ..manifolds import Manifold
-from ..models.factors import residual_at, stackable_residual_params
+from ..models.factors import (MODEL_REGISTRY, FactorModel, residual_at,
+                              stackable_residual_params)
 from .hypo import build_masks, draw_hypotheses, parse_multihypo
 from .product import Proposal
 
-__all__ = ["batched_gauss_newton", "add_entropy", "ConvSpec",
-           "make_conv_spec", "null_surplus_map", "static_dim_mask",
+__all__ = ["batched_gauss_newton", "solve_signature", "add_entropy",
+           "ConvSpec", "make_conv_spec", "null_surplus_map",
+           "static_dim_mask",
            "eval_factor_core", "eval_factor_core_batched", "eval_factor",
            "sample_factor",
            "approx_conv_belief", "proposal_from_factor"]
@@ -64,18 +72,50 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
     ``params``: per-particle residual tensors (n, ...) read in place of the
     model's own (models/factors.py ``residual_at``), so that particles of
     several same-structure factors solve in one pass.
-    ``linear``: one closed-form GN step (exact for affine residuals).
-    Otherwise an LM loop: a step is kept only when finite and not worse;
+    ``linear``: one closed-form GN step (exact for affine residuals), kept
+    only when finite.  Otherwise an LM loop: a step is kept only when finite and not worse;
     rejection raises the damping ×10 (≤ 1e8), acceptance lowers it ÷3
-    (≥ ``damping``).  ``partial_dims`` pins all other tangent dims."""
+    (≥ ``damping``).  ``partial_dims`` pins all other tangent dims.
+
+    On a CUDA device the whole solve is launched as one CUDA graph where
+    :func:`solve_signature` gives the call a key: the key's first call
+    solves eagerly, its second captures the solve and replays it, and
+    later calls replay it (:class:`_SolveGraphs`, one cache a thread; a
+    capture waits for a call on a lone Python thread).  A replay runs the
+    eager solve's kernels in its order, on copies of the inputs.  A CPU
+    tensor always solves eagerly, and so does the mesh split of
+    :func:`_solve_particles`, which calls :func:`_lm_solve`.  Each call
+    counts once under ``conv_graph_replays``, ``conv_graph_captures`` or
+    ``conv_eager_solves`` (``tracing.count``)."""
+    tracing.count("jacobian_passes", 1 if linear else iters)
+    solve = functools.partial(_lm_solve, manifold, model, sf_slot, iters,
+                              damping, linear, len(params))
+    inputs = (meas, x0) + tuple(params) + tuple(others)
+    free = functools.partial(_free_mask, manifold.dof, partial_dims,
+                             x0.device)
+    key = None
+    if x0.device.type == "cuda":
+        key = solve_signature(manifold, model, sf_slot, iters, damping,
+                              partial_dims, linear, len(params), inputs)
+    if key is None:
+        tracing.count("conv_eager_solves")
+        return solve(free(), *inputs)
+    return _GRAPHS.solve(key, solve, free, inputs)
+
+
+def _lm_solve(manifold: Manifold, model, sf_slot: int, iters: int,
+              damping: float, linear: bool, n_params: int,
+              free: torch.Tensor, meas: torch.Tensor, x0: torch.Tensor,
+              *others: torch.Tensor) -> torch.Tensor:
+    """The solve of :func:`batched_gauss_newton`, ``others`` its
+    ``params`` then its ``others``.  Every tensor it makes it makes on the
+    device from these, and nothing in it waits for the device: a CUDA
+    graph can capture it whole."""
     dof = manifold.dof
     dt, dev = x0.dtype, x0.device
-    free = _free_mask(dof, partial_dims, dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     eye = torch.eye(dof, dtype=dt, device=dev)
     z = torch.zeros((x0.shape[0], dof), dtype=dt, device=dev)
-
-    n_params = len(params)
 
     def res(X, x, meas_i, *rest):
         X = torch.where(free, X, zero)
@@ -87,21 +127,24 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
 
     jac = vmap(jacrev(res, argnums=0))
     resv = vmap(res)
-    others = tuple(params) + tuple(others)
 
     def gn_step(x, lam):
         r0 = resv(z, x, meas, *others)                       # (n, resdim)
         J = jac(z, x, meas, *others)                         # (n, res, dof)
         Jt = J.transpose(-1, -2)
         JtJ = Jt @ J + lam[:, None, None] * eye
-        step = torch.linalg.solve(JtJ, (Jt @ r0[..., None]))[..., 0]
+        # JtJ + λI is positive definite (λ ≥ damping > 0); a step that is
+        # not finite is rejected below, so nothing is checked on the host
+        step = torch.linalg.solve_ex(JtJ, Jt @ r0[..., None],
+                                     check_errors=False)[0][..., 0]
         step = torch.where(free, step, zero)
         return manifold.exp(x, -step), r0
 
     lam0 = torch.full((x0.shape[0],), damping, dtype=dt, device=dev)
     if linear:
-        tracing.count("jacobian_passes")
-        return gn_step(x0, lam0)[0]
+        # a step that is not finite keeps x0, as the LM loop rejects one
+        x = gn_step(x0, lam0)[0]
+        return torch.where(torch.isfinite(x).all(-1, keepdim=True), x, x0)
 
     x, lam = x0, lam0
     for _ in range(iters):
@@ -113,8 +156,166 @@ def batched_gauss_newton(manifold: Manifold, model, meas: torch.Tensor,
         x = torch.where(ok[:, None], x_new, x)
         lam = torch.where(ok, torch.clamp(lam / 3.0, min=damping),
                           torch.clamp(lam * 10.0, max=1e8))
-    tracing.count("jacobian_passes", iters)         # one an LM iteration
     return x
+
+
+def _field_key(v):
+    """A registered model field by value where it is structure (a number,
+    a string, a manifold, a model, a tuple of these); by type alone where
+    it is data that no residual reads in place (a distribution or a belief
+    is sampled; a tensor or array reaches the residual, if at all, through
+    ``params``).  None for anything else: such a model is not keyed."""
+    if isinstance(v, FactorModel):
+        return _model_key(v)
+    if v is None or isinstance(v, (bool, int, float, str, Manifold)):
+        return (type(v), v)
+    if isinstance(v, (tuple, list)):
+        ks = tuple(_field_key(x) for x in v)
+        return None if None in ks else (type(v), ks)
+    if isinstance(v, (torch.Tensor, np.ndarray, Distribution, Belief)):
+        return type(v)
+    return None
+
+
+def _model_key(model):
+    """The model's class and every field its ``MODEL_REGISTRY`` entry
+    lists (:func:`_field_key`), or None where the class is not registered
+    or a field cannot be keyed."""
+    entry = MODEL_REGISTRY.get(type(model).__name__)
+    if entry is None or entry[0] is not type(model):
+        return None
+    fields = tuple((f, _field_key(getattr(model, f, None)))
+                   for f in entry[1] + entry[2])
+    if any(k is None for _, k in fields):
+        return None
+    return (type(model), fields)
+
+
+def solve_signature(manifold: Manifold, model, sf_slot: int, iters: int,
+                    damping: float, partial_dims, linear: bool,
+                    n_params: int, inputs: Tuple[torch.Tensor, ...]):
+    """The key of a :func:`batched_gauss_newton` call, which its CUDA
+    graph is captured and replayed under: everything that decides which
+    kernels the solve launches, in which order, on which shapes.  That is
+    the model (:func:`_model_key`), the manifold, the solve's settings,
+    each input's shape, strides, dtype and device (``inputs``: meas, x0,
+    the ``n_params`` params, then others), and the float32 matmul
+    precision in force (it picks the cuBLAS kernel).  None where a replay
+    could read other tensors than the call's: a model outside the registry
+    or with a field that cannot be keyed, one whose residual parameters do
+    not stack (``stackable_residual_params`` raises), and one that would
+    read its own residual tensors because no ``params`` were given."""
+    structure = _model_key(model)
+    if structure is None:
+        return None
+    if not n_params:
+        try:
+            if stackable_residual_params(model, inputs[1].device):
+                return None
+        except NotImplementedError:
+            return None
+    return (structure, manifold, int(sf_slot), int(iters), float(damping),
+            None if partial_dims is None else tuple(partial_dims),
+            bool(linear), int(n_params),
+            tuple((tuple(t.shape), t.stride(), t.dtype, t.device)
+                  for t in inputs),
+            torch.backends.cuda.matmul.fp32_precision)
+
+
+#: signatures whose solve a thread keeps (a captured graph, or the mark of
+#: one eager call); the least recently used goes first, its graph's memory
+#: with it.  Within one workload of chip_smoke.py a thread meets at most 11
+#: other signatures between two calls of one (the batched forest and the
+#: mesh), the benchmark's cells 1 (2 signatures a step), so none of them
+#: loses a signature it will call again; a signature that comes back only
+#: in a later workload solves eagerly once more, then is captured again
+GRAPH_CACHE_SIZE = 16
+
+#: the state of a signature no call of this thread has met
+_NEW = object()
+
+
+class _Captured:
+    """One captured solve: the graph, the static tensors it reads (the
+    mask of free dims, then copies of the call's inputs) and its
+    output."""
+
+    def __init__(self, solve, free, inputs, stream):
+        self.inputs = tuple(torch.empty_like(t) for t in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = solve(free, *self.inputs)
+        self.free = free
+
+    def replay(self, inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.out.clone()
+
+
+class _SolveGraphs(threading.local):
+    """One thread's solves by signature: None after the first call (solved
+    eagerly), then its :class:`_Captured`, or False where the capture
+    failed.  Per thread, so that two threads never write one graph's
+    static inputs."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()
+
+    def solve(self, key, solve, free, inputs):
+        """``solve(free(), *inputs)``: eagerly at the key's first call,
+        captured then replayed at its second, replayed after.  A key met
+        while other Python threads run solves eagerly until a call finds
+        its thread alone, and captures then."""
+        state = self.entries.pop(key, _NEW)
+        counter = "conv_graph_replays"
+        # another thread's work on the device during a capture (a
+        # synchronize, a launch on the default stream) fails there and
+        # breaks the capture: capture only on a lone thread, which also
+        # makes it the process's one capture at a time
+        if state is None:
+            if threading.active_count() == 1:
+                state = self._capture(key, solve, free(), inputs)
+                counter = "conv_graph_captures"
+            else:
+                _warn_other_threads()
+        self.entries[key] = None if state is _NEW else state
+        while len(self.entries) > GRAPH_CACHE_SIZE:
+            self.entries.popitem(last=False)
+        if isinstance(state, _Captured):
+            tracing.count(counter)
+            return state.replay(inputs)
+        tracing.count("conv_eager_solves")
+        return solve(free(), *inputs)
+
+    def _capture(self, key, solve, free, inputs):
+        """The key's :class:`_Captured`, or False where the solve cannot
+        be captured."""
+        dev = inputs[1].device
+        try:
+            with torch.cuda.device(dev):
+                return _Captured(solve, free, inputs, torch.cuda.Stream(dev))
+        except RuntimeError as e:
+            # a residual that copies from the host or waits for the device
+            # cannot be captured: its key solves eagerly from now on
+            warnings.warn(f"the convolution's solve through "
+                          f"{key[0][0].__name__} runs eagerly: its CUDA "
+                          f"graph capture failed ({e})")
+            return False
+
+
+@functools.cache
+def _warn_other_threads():
+    """Says once a process that a capture waits for other threads."""
+    warnings.warn("the convolution's solves run eagerly while other Python "
+                  "threads are alive (a notebook kernel's, a debugging "
+                  "redraw loop's, a thread pool's): their CUDA graphs are "
+                  "captured on a lone thread only", stacklevel=4)
+
+
+_GRAPHS = _SolveGraphs()
 
 
 def add_entropy(manifold: Manifold, points: torch.Tensor, key,
@@ -282,14 +483,19 @@ def _solve_particles(manifold, models, meas, others, x0, sf_slot,
     if len(devices) < 2 or rows % len(devices):
         return batched_gauss_newton(manifold, model, meas, others, x0,
                                     sf_slot, params=params, **kw)
+    # the split solves eagerly: no cell runs it
     per = rows // len(devices)
     parts = []
     for c, dev in enumerate(devices):
         def part(t, c=c, dev=dev):
             return t[c * per:(c + 1) * per].to(dev)
-        parts.append(batched_gauss_newton(
-            manifold, model, part(meas), tuple(part(o) for o in others),
-            part(x0), sf_slot, params=tuple(part(p) for p in params), **kw))
+        tracing.count("jacobian_passes", 1 if spec.linear else spec.iters)
+        tracing.count("conv_eager_solves")
+        parts.append(_lm_solve(
+            manifold, model, sf_slot, spec.iters, spec.damping, spec.linear,
+            len(params), _free_mask(manifold.dof, spec.partial_dims, dev),
+            part(meas), part(x0), *(part(p) for p in params),
+            *(part(o) for o in others)))
     return torch.cat([p.to(x0.device) for p in parts])
 
 

@@ -283,8 +283,10 @@ def test_cpu_se2_solve_records_every_leaf_span(monkeypatch):
     c = snap["counters"]
     assert passes[0] > 0 and c["jacobian_passes"] == passes[0]
     # no closed-form factor on SE(2): one pass an LM iteration, and the
-    # residuals before and after each
-    assert set(c) == {"jacobian_passes"}
+    # residuals before and after each; on the CPU every solve (8 LM
+    # iterations each) is eager
+    assert set(c) == {"jacobian_passes", "conv_eager_solves"}
+    assert c["jacobian_passes"] == 8 * c["conv_eager_solves"]
     convs = [s for s in snap["spans"] if s["name"] == "convolve"]
     assert {s["attrs"]["factor"] for s in convs} == {"ManifoldPrior",
                                                      "ManifoldFactor"}
