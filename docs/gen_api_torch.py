@@ -115,6 +115,29 @@ DEPARTURES = [
 ]
 
 
+# the spans and counters ``tracing`` records at the port's layer
+# boundaries, while a ``torch.profiler`` session records
+RECORDED = [
+    "**Roots** (one a top-level API call): `solve_tree`, `set_ppe`, "
+    "`add_variable`, `add_factor`.",
+    "**Graph build and tree**: `graphinit`, `tree`.",
+    "**Sweeps** (`parallel.scheduler`): `sweep.up`, `sweep.down`, "
+    "`clique.up`, `clique.down`, `level.up`, `segment.up`, `gibbs`, "
+    "`update`, `message`.",
+    "**Convolution** (`ops.convolve`): `convolve`; counters "
+    "`jacobian_passes` (one an LM iteration or linear solve), and one of "
+    "`conv_graph_replays`, `conv_graph_captures`, `conv_eager_solves` a "
+    "`batched_gauss_newton` call.",
+    "**Bandwidth and estimates**: `bandwidth`, `kde_logpdf`.",
+    "**Product** (`ops.product`, `ops.fused`): `product`; inside it one "
+    "`product.draw` a pair product's call, around its draws (the rows, "
+    "the drawn rows' weights, the Gumbel argmax) on every route "
+    "(attributes `route`, `members`, `rows`, `na`, `nb`, `dof`), with "
+    "stream marks on the card (`device_us`); counter `draw_pairs` "
+    "(members × rows × Nb, the pairs the column draws weigh).",
+]
+
+
 def first_para(doc: str | None) -> str:
     if not doc:
         return ""
@@ -240,6 +263,10 @@ def render() -> str:
             lines.append(f"## {title}\n")
             lines.extend(entries)
             lines.append("")
+
+    lines.append("## What the recorder records (`tracing`)\n")
+    lines.extend(f"- {r}" for r in RECORDED)
+    lines.append("")
 
     lines.append("## Where the port departs from the reference on purpose\n")
     lines.extend(f"- {d}" for d in DEPARTURES)

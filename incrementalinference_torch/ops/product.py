@@ -18,6 +18,13 @@ The pair products and the cascade take a leading member axis (B
 independent problems of one shape, a sequence of B keys): each member
 draws from its own key, as it would alone, and on the large-pair path the
 row log-partitions of all members are one kernel launch.
+
+Each route's draws (the rows, the columns' weights and the Gumbel argmax,
+every member) run inside one span ``product.draw`` a call, nested in
+``product``, with stream marks on the card (``tracing.span``), and count
+``draw_pairs`` (members × n_out × Nb: the (row, column) pairs the column
+draws weigh).  A route added later counts
+the same work the same way.
 """
 
 from __future__ import annotations
@@ -119,6 +126,18 @@ def _pair_logW(muA, precA, muB, precB):
     return -0.5 * (a2[..., None] + t2 - 2.0 * t3)
 
 
+def _count_draw(sp, route: str, muA, muB, members: int, n_out: int):
+    """Inside a recording span ``product.draw`` (``sp``; None while
+    nothing records): its attributes and the ``draw_pairs`` the call's
+    column draws weigh, members × n_out × Nb."""
+    if sp is None:
+        return
+    nb = muB.shape[-2]
+    sp.attrs.update(route=route, members=members, rows=n_out,
+                    na=muA.shape[-2], nb=nb, dof=muA.shape[-1])
+    tracing.count("draw_pairs", members * n_out * nb)
+
+
 def pair_product_tangent(muA, precA, muB, precB, key, n_out: int):
     """Exact product of two diagonal-Gaussian mixtures in tangent coords;
     ``precB`` shares one precision row.  Returns (mu, prec) of ``n_out``
@@ -130,11 +149,13 @@ def pair_product_tangent(muA, precA, muB, precB, key, n_out: int):
     logW = _pair_logW(muA, precA, muB, precB)             # (B, Na, Nb)
     row_ls = torch.logsumexp(logW, dim=-1)
     ia, ib = [], []
-    for b, k in enumerate(keys):
-        k_row, k_col = _keys.split(k, 2)
-        i = _keys.categorical(k_row, row_ls[b], n_out)
-        ia.append(i)
-        ib.append(_keys.categorical_rows(k_col, logW[b][i]))
+    with tracing.span("product.draw", muA.device, marks=True) as sp:
+        _count_draw(sp, "materialised", muA, muB, len(keys), n_out)
+        for b, k in enumerate(keys):
+            k_row, k_col = _keys.split(k, 2)
+            i = _keys.categorical(k_row, row_ls[b], n_out)
+            ia.append(i)
+            ib.append(_keys.categorical_rows(k_col, logW[b][i]))
     ia, ib = torch.stack(ia), torch.stack(ib)
     mu, prec = _combine(_take(precA, ia), _take(muA, ia), _take(precB, ib),
                         _take(muB, ib))
@@ -198,26 +219,33 @@ def pair_product_tangent_weighted(muA, precA, muB, precB, logwB, key,
     precisions (the condensed form; Nb is the small cluster count).  With
     a sequence of keys the inputs carry a leading member axis; the members
     are solved one after another."""
-    keys, ts, batched = _members(key, muA, precA, muB, precB, logwB)
-    return _out([_weighted_one(*(t[b] for t in ts), k, n_out)
-                 for b, k in enumerate(keys)], batched)
+    keys, (muA, precA, muB, precB, logwB), batched = _members(
+        key, muA, precA, muB, precB, logwB)
+    row_ls = [torch.logsumexp(_logits_vs(muA[b], precA[b], muB[b], precB[b],
+                                         logwB[b]), dim=1)
+              for b in range(len(keys))]
+    outs = []
+    with tracing.span("product.draw", muA.device, marks=True) as sp:
+        _count_draw(sp, "condensed", muA, muB, len(keys), n_out)
+        for b, k in enumerate(keys):
+            k_row, k_col = _keys.split(k, 2)
+            ia = _keys.categorical(k_row, row_ls[b], n_out)
+            sA, qA = muA[b][ia], precA[b][ia]
+            ib = _keys.categorical_rows(k_col, _logits_vs(
+                sA, qA, muB[b], precB[b], logwB[b]))
+            outs.append(_combine(qA, sA, precB[b][ib], muB[b][ib]))
+    return _out(outs, batched)
 
 
-def _weighted_one(muA, precA, muB, precB, logwB, key: int, n_out: int):
-    def logits_vs_B(mu_rows, prec_rows):
-        pa, pb = prec_rows[:, None, :], precB[None, :, :]
-        both = (pa > 0) & (pb > 0)
-        ivar = torch.where(both, pa * pb / torch.clamp(pa + pb, min=1e-30),
-                           torch.zeros((), dtype=pa.dtype, device=pa.device))
-        diff = mu_rows[:, None, :] - muB[None, :, :]
-        return -0.5 * torch.sum(ivar * diff * diff, dim=-1) + logwB[None, :]
-
-    k_row, k_col = _keys.split(key, 2)
-    row_ls = torch.logsumexp(logits_vs_B(muA, precA), dim=1)
-    ia = _keys.categorical(k_row, row_ls, n_out)
-    sA, qA = muA[ia], precA[ia]
-    ib = _keys.categorical_rows(k_col, logits_vs_B(sA, qA))
-    return _combine(qA, sA, precB[ib], muB[ib])
+def _logits_vs(mu_rows, prec_rows, muB, precB, logwB):
+    """(R, Nb) pair log-weights of the given rows against all of the
+    weighted mixture B."""
+    pa, pb = prec_rows[:, None, :], precB[None, :, :]
+    both = (pa > 0) & (pb > 0)
+    ivar = torch.where(both, pa * pb / torch.clamp(pa + pb, min=1e-30),
+                       torch.zeros((), dtype=pa.dtype, device=pa.device))
+    diff = mu_rows[:, None, :] - muB[None, :, :]
+    return -0.5 * torch.sum(ivar * diff * diff, dim=-1) + logwB[None, :]
 
 
 def pair_product_tangent_large(muA, precA, muB, precB, key, n_out: int):
@@ -236,21 +264,24 @@ def pair_product_tangent_large(muA, precA, muB, precB, key, n_out: int):
     blk = min(_LARGE_SEL_BLOCK, n_out)
     nblk = -(-n_out // blk)
     outs = []
-    for b, k in enumerate(keys):
-        k_row, k_col = _keys.split(k, 2)
-        ia = _keys.categorical(k_row, row_ls[b], n_out)
-        keys_b = _keys.split(k_col, nblk)
-        mus, precs = [], []
-        for j in range(nblk):
-            ia_blk = ia[j * blk:(j + 1) * blk]
-            muA_s, precA_s = muA[b][ia_blk], precA[b][ia_blk]
-            logW_rows = _pair_logW(muA_s, precA_s, muB[b], precB[b])
-            ib = _keys.categorical_rows(keys_b[j], logW_rows)
-            del logW_rows
-            mu, prec = _combine(precA_s, muA_s, precB[b][ib], muB[b][ib])
-            mus.append(mu)
-            precs.append(prec)
-        outs.append((torch.cat(mus), torch.cat(precs)))
+    with tracing.span("product.draw", muA.device, marks=True) as sp:
+        _count_draw(sp, "large", muA, muB, len(keys), n_out)
+        for b, k in enumerate(keys):
+            k_row, k_col = _keys.split(k, 2)
+            ia = _keys.categorical(k_row, row_ls[b], n_out)
+            keys_b = _keys.split(k_col, nblk)
+            mus, precs = [], []
+            for j in range(nblk):
+                ia_blk = ia[j * blk:(j + 1) * blk]
+                muA_s, precA_s = muA[b][ia_blk], precA[b][ia_blk]
+                logW_rows = _pair_logW(muA_s, precA_s, muB[b], precB[b])
+                ib = _keys.categorical_rows(keys_b[j], logW_rows)
+                del logW_rows
+                mu, prec = _combine(precA_s, muA_s, precB[b][ib],
+                                    muB[b][ib])
+                mus.append(mu)
+                precs.append(prec)
+            outs.append((torch.cat(mus), torch.cat(precs)))
     return _out(outs, batched)
 
 

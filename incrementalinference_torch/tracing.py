@@ -20,16 +20,31 @@ read, no allocation, no lock.
 - A **session** begins at the first boundary that finds the flag set after
   one, or a :func:`snapshot`, that found it clear (or at the first boundary
   ever), and clears the session before it.  Where its first span names a
-  CUDA device, it first launches one ``torch.cuda._sleep`` marker of a
-  few cycles on that device's current stream and keeps the host time of
-  the launch, so that a reader can put the spans on the device trace's
-  clock: the marker's start in the trace less :func:`snapshot`'s
-  ``marker_ns`` is the offset.
+  CUDA device, it first launches one ``torch.cuda._sleep`` marker of
+  ``MARKER_CYCLES`` on that device's current stream, keeps the host time
+  of the launch, and records a timing ``torch.cuda.Event`` behind it.  A
+  reader puts the spans on the device trace's clock by the marker's
+  start: its start in the trace less :func:`snapshot`'s ``marker_ns`` is
+  the offset.  The event reads the marker's end, since the host records
+  it while the marker still spins (an event recorded on an idle device
+  reads the moment the host got to it, hundreds of microseconds late in
+  a fresh profiler session): it is the origin of the stream marks below.
+- A span opened with ``marks=True`` on the marker's CUDA device also
+  records a timing event on the device's current stream as it begins and
+  as it ends.  Operations on one stream run in the order they were
+  launched, so the operations the span launched on that stream are those
+  that run between its two marks, whenever the device got to them.
+  :func:`snapshot` gives each mark's device time after the marker's end
+  (``device_us``).  The events' clock and the profiler trace's part: on
+  an H100 by up to 600 parts per million over a session and by some tens
+  of microseconds from one session to the next, so on the trace's clock a
+  mark stands within that of the kernel boundary it follows.
 - Everything stays in memory; :func:`snapshot` returns the current
   session.  Nothing is exported and nothing goes into the profiler's own
   events (no ``record_function``, no NVTX range): the marker is the only
-  device work the recorder adds, and it never reads the device (no
-  ``.item()``, no synchronize).
+  kernel the recorder adds, an event record is no operation of the
+  trace, and a boundary never reads the device (no ``.item()``, no
+  synchronize; only :func:`snapshot` waits for the marks it reads).
 
 Each thread keeps its own stack of open spans, so graphs solved on several
 threads at once nest their spans apart; session totals are taken under a
@@ -64,9 +79,11 @@ import torch.autograd.profiler as _profiler
 
 __all__ = ["span", "spanned", "count", "snapshot", "wall_time", "Span"]
 
-#: cycles the session's marker kernel spins: a launch the trace shows, and
-#: no more
-MARKER_CYCLES = 100
+#: cycles the session's marker kernel spins: longer than the host takes to
+#: record the timing event behind it, which at a profiler session's first
+#: launch has exceeded 250 us on an H100 (2,000,000 cycles: about 1 ms at
+#: its boost clock)
+MARKER_CYCLES = 2_000_000
 
 #: wall-clock seconds less perf_counter seconds, taken once at import: the
 #: one conversion of a recorder time to the wall clock (:func:`wall_time`)
@@ -94,6 +111,10 @@ class _Session:
         self.ids = itertools.count()
         self.marker_ns = None
         self.marker_device = None
+        #: the index of the marker's device, and the timing event that
+        #: reads the marker's end, the origin of every ``device_us``
+        self.marker_index = None
+        self.marker_event = None
 
 
 class _Off:
@@ -123,7 +144,7 @@ class Span:
     while a session records."""
 
     __slots__ = ("session", "id", "name", "start_ns", "end_ns", "parent",
-                 "root", "thread", "attrs", "counts")
+                 "root", "thread", "attrs", "counts", "marks")
 
     def __init__(self, session, name):
         self.session = session
@@ -135,6 +156,8 @@ class Span:
         self.thread = threading.get_ident()
         self.attrs = {}
         self.counts = {}
+        #: (stream, begin event, end event) of a span with marks, or None
+        self.marks = None
 
     def __enter__(self):
         st = _stack()
@@ -144,18 +167,34 @@ class Span:
         st.append(self)
         self.session.spans.append(self)
         self.start_ns = time.perf_counter_ns()
+        if self.marks is not None:
+            self.marks[1].record(self.marks[0])
         return self
 
     def __exit__(self, *exc):
+        if self.marks is not None:
+            self.marks[2].record(self.marks[0])
         self.end_ns = time.perf_counter_ns()
         _stack().pop()
         return False
+
+    def device_us(self):
+        """(begin, end) of the span's marks in microseconds after the
+        session marker's end on the device's clock, or None (no marks, or
+        the span still open).  Waits for the end mark."""
+        ref = self.session.marker_event
+        if self.marks is None or self.end_ns is None or ref is None:
+            return None
+        self.marks[2].synchronize()
+        return (1e3 * ref.elapsed_time(self.marks[1]),
+                1e3 * ref.elapsed_time(self.marks[2]))
 
     def as_dict(self) -> dict:
         return {"id": self.id, "name": self.name, "start_ns": self.start_ns,
                 "end_ns": self.end_ns, "parent": self.parent,
                 "root": self.root, "thread": self.thread,
-                "attrs": dict(self.attrs), "counts": dict(self.counts)}
+                "attrs": dict(self.attrs), "counts": dict(self.counts),
+                "device_us": self.device_us()}
 
 
 def _session(device=None):
@@ -173,20 +212,39 @@ def _session(device=None):
             if s.marker_ns is None and \
                     getattr(device, "type", None) == "cuda":
                 with torch.cuda.device(device):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()         # makes the CUDA event beforehand
                     s.marker_ns = time.perf_counter_ns()
                     torch.cuda._sleep(MARKER_CYCLES)
+                    ev.record()
+                    s.marker_index = torch.cuda.current_device()
                 s.marker_device = str(device)
+                s.marker_event = ev
     return s
 
 
-def span(name: str, device=None):
+def _cuda_index(device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def span(name: str, device=None, marks: bool = False):
     """A context manager around one layer's work: a :class:`Span` while a
     profiler session records, else a shared no-op.  ``device`` (root spans:
-    the graph's) lets the session's first span launch the marker."""
+    the graph's) lets the session's first span launch the marker; with
+    ``marks`` on the marker's CUDA device the span records its two
+    stream marks (not while the stream captures a CUDA graph)."""
     if not _profiler._is_profiler_enabled:
         _state.stale = True
         return _OFF
-    return Span(_session(device), name)
+    sp = Span(_session(device), name)
+    if marks and getattr(device, "type", None) == "cuda" and \
+            sp.session.marker_index == _cuda_index(device) and \
+            not torch.cuda.is_current_stream_capturing():
+        sp.marks = (torch.cuda.current_stream(device),
+                    torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+    return sp
 
 
 def spanned(name: str, attrs=None, device=None):
@@ -236,7 +294,8 @@ def snapshot() -> dict:
     profile begins a session of its own.
 
     ``spans`` are dicts of :meth:`Span.as_dict`, in the order they began
-    (``end_ns`` None while open); ``counters`` the totals; ``marker_ns``
+    (``end_ns`` None while open; ``device_us`` the stream marks of a span
+    opened with ``marks``, else None); ``counters`` the totals; ``marker_ns``
     the host time (``time.perf_counter_ns``) of the marker's launch, or
     None; ``marker_device`` its device.  Empty before the first
     session."""

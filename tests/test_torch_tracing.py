@@ -27,7 +27,7 @@ from incrementalinference_torch.parallel.scheduler import CliqueTrace
 
 LEAF_SPANS = {"graphinit", "tree", "sweep.up", "sweep.down", "clique.up",
               "clique.down", "gibbs", "update", "convolve", "bandwidth",
-              "product", "message", "kde_logpdf"}
+              "product", "product.draw", "message", "kde_logpdf"}
 
 
 def cpu_session():
@@ -285,8 +285,17 @@ def test_cpu_se2_solve_records_every_leaf_span(monkeypatch):
     # no closed-form factor on SE(2): one pass an LM iteration, and the
     # residuals before and after each; on the CPU every solve (8 LM
     # iterations each) is eager
-    assert set(c) == {"jacobian_passes", "conv_eager_solves"}
+    assert set(c) == {"jacobian_passes", "conv_eager_solves", "draw_pairs"}
     assert c["jacobian_passes"] == 8 * c["conv_eager_solves"]
+    # every product's column draw in a span of its own, nested in the
+    # product, which counts the pairs it weighs
+    ids = by_id(snap)
+    draws = [s for s in snap["spans"] if s["name"] == "product.draw"]
+    assert draws
+    assert all(ids[s["parent"]]["name"] == "product" for s in draws)
+    assert sum(s["counts"]["draw_pairs"] for s in draws) == c["draw_pairs"]
+    assert c["draw_pairs"] == sum(s["attrs"]["members"] * s["attrs"]["rows"]
+                                  * s["attrs"]["nb"] for s in draws)
     convs = [s for s in snap["spans"] if s["name"] == "convolve"]
     assert {s["attrs"]["factor"] for s in convs} == {"ManifoldPrior",
                                                      "ManifoldFactor"}
