@@ -89,9 +89,13 @@ Phases (any failure exits non-zero before the result line; none is caught):
    under the chunk's bar (beliefs._KDE_CHUNK_PAIRS x 256 B) and its wall
    printed, every estimate finite, mean = M.mean(points), max the tie
    average of the particles of highest KDE density, mean within 0.2 of
-   truth; the chunked kde_logpdf and _ppe_core against the one-pass form
-   at SE(2) N = 8,192 (log-density within 1e-6, mean bit-equal, the same
-   particles chosen);
+   truth; the chunked eager kde_logpdf and _ppe_core against the
+   one-pass form at SE(2) N = 8,192 (log-density within 1e-6, mean
+   bit-equal, the same particles chosen), and SE(2)'s KDE kernel
+   (ops/kernels/kde_lse.py) against the one-pass form in float64 (2e-5;
+   the chosen particle within 1e-5 of the best); that kernel at 50k x 50k
+   on SE(2) and Euclidean(1), timed by CUDA events beside its eager chunks
+   and held to the float64 read (phase_kde_kernel, 2e-5);
    LineStep(20) once more with joint up-messages (use_msg_likelihoods);
    Then the model families and the graph and tree surfaces, each solve
    through ``solve_tree`` on CUDA at N = 50,000 with the kernel's launch
@@ -1625,7 +1629,8 @@ def phase_manifold_large(it, K, M, name, step, sigma, N):
 
 def _kde_whole(M, pts, bw):
     """beliefs.kde_logpdf at the particles themselves in one pass, the
-    reference for its chunks: (N, N, dof) tangents at once."""
+    reference for its chunks: (N, N, dof) tangents at once (in float64
+    where the inputs are)."""
     X = M.log(pts[None, :, :], pts[:, None, :])
     z = X / bw
     logk = -0.5 * torch.sum(z * z, dim=-1)
@@ -1633,6 +1638,17 @@ def _kde_whole(M, pts, bw):
                + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
     return (torch.logsumexp(logk, dim=-1) - math.log(float(pts.shape[0]))
             - lognorm)
+
+
+def _kde_chunked(M, pts, bw):
+    """beliefs.kde_logpdf's eager route at the particles themselves, the
+    chunks that every manifold without the kernel reads by."""
+    from incrementalinference_torch import beliefs
+
+    lognorm = (torch.sum(torch.log(bw))
+               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
+    return (beliefs._kde_lse_chunked(M, pts, bw, pts, ())
+            - math.log(float(pts.shape[0])) - lognorm)
 
 
 def _tie_gap(est, pts, lp):
@@ -1662,7 +1678,10 @@ def phase_ppe(it, solved):
     x1 (LOO bandwidth), SE(2) at 8,192 (2,048 rows a chunk, 4
     chunks) and SE(3) at 5,000 (2 chunks; the one pass ~5 GB): each row's
     log-density within 1e-6, ``mean`` bit-equal, the same chosen
-    particles."""
+    particles.  Where ``kde_logpdf`` reads by the kernel (SE(2)), the
+    chunks are its eager route called directly, and the kernel is held
+    to the one-pass form in float64: each row within 2e-5, its chosen
+    particle's float64 log-density within 1e-5 of the best."""
     from incrementalinference_torch import beliefs
 
     n_whole = {"Pose2": 8192, "Pose3": 5000}
@@ -1705,8 +1724,9 @@ def phase_ppe(it, solved):
         n = n_whole[name]
         pts = fg.get_belief("x1").points[:n].contiguous()
         bw = beliefs.loo_bandwidth(M, pts)
-        lp = it.kde_logpdf(M, beliefs.Belief(pts, bw, bw), pts)
+        lp = _kde_chunked(M, pts, bw)
         mu, pmax = beliefs._ppe_core(M, pts, bw)
+        kernel = beliefs.kde_lse.takes(M, pts, pts, bw)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1714,14 +1734,33 @@ def phase_ppe(it, solved):
         torch.cuda.synchronize()
         peak_whole = torch.cuda.max_memory_allocated() - held
         err = float((lp - lp_whole).abs().max())
-        gap, sel = _tie_gap(pmax, pts, lp_whole)
         check(err <= 1e-6, f"{name} N={n}: chunked log-density {err} "
               "from the one-pass form")
         check(torch.equal(mu, M.mean(pts)), f"{name} N={n}: mean")
-        check(torch.equal(sel, lp == lp.max()), f"{name} N={n}: the "
-              "chunked and one-pass forms chose different particles")
-        check(gap <= 1e-6, f"{name} N={n}: max is {gap} from the "
-              "one-pass form's particle")
+        check(torch.equal(lp_whole == lp_whole.max(), lp == lp.max()),
+              f"{name} N={n}: the chunked and one-pass forms chose "
+              "different particles")
+        if kernel:
+            lp64 = _kde_whole(M, pts.double(), bw.double())
+            lpk = it.kde_logpdf(M, beliefs.Belief(pts, bw, bw), pts)
+            kerr = float((lpk.double() - lp64).abs().max())
+            check(kerr <= 2e-5, f"{name} N={n}: the kernel's log-density "
+                  f"{kerr} from the one-pass form in float64")
+            gap, _ = _tie_gap(pmax, pts, lpk)
+            check(gap <= 1e-6, f"{name} N={n}: max is {gap} from the "
+                  "kernel's particle")
+            gap = float(lp64.max() - lp64[lpk == lpk.max()].min())
+            check(gap <= 1e-5, f"{name} N={n}: the kernel's max lies {gap} "
+                  "below the best particle in float64")
+            print(f"PASS ppe kernel vs one pass in float64, {name} N={n}: "
+                  f"log-density within {kerr:.2e}, the chosen particle "
+                  f"{gap:.2e} below the best", flush=True)
+            del lp64
+        else:
+            gap, _ = _tie_gap(pmax, pts, lp_whole)
+            check(gap <= 1e-6, f"{name} N={n}: max is {gap} from the "
+                  "one-pass form's particle")
+        sel = lp == lp.max()
         rows = max(1, beliefs._KDE_CHUNK_PAIRS // n)
         print(f"PASS ppe chunked vs one pass, {name} N={n} ({rows} rows a "
               f"chunk, {-(-n // rows)} chunks): log-density within "
@@ -1732,6 +1771,62 @@ def phase_ppe(it, solved):
     dt = time.time() - t_all
     check(dt < 60, f"phase_ppe took {dt:.1f} s (budget 60 s)")
     print(f"PASS phase_ppe: {dt:.1f} s (budget 60 s)", flush=True)
+
+
+def phase_kde_kernel(n=50_000, reps=20):
+    """The KDE read's kernel (ops/kernels/kde_lse.py) at n x n on SE(2)
+    (the se2pair cell's x1 spread) and Euclidean(1) (two modes): CUDA-event
+    times of ``kde_logpdf`` at the particles themselves (kernel) and of its
+    eager chunks on the same inputs (plain), medians of three windows, and
+    each route's largest gap to the plain route in float64.  Alone:
+    ``python3 -c "import chip_smoke as cs; cs.phase_kde_kernel()"``."""
+    import incrementalinference_torch as it
+    from incrementalinference_torch import beliefs
+    from incrementalinference_torch.ops.kernels import kde_lse
+
+    kde_lse.build(verbose=False)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    for name, M in (("SE(2)", it.SE2()), ("Euclidean(1)", it.Euclidean(1))):
+        if name == "SE(2)":
+            X = torch.randn(n, 3, generator=gen, dtype=torch.float64) \
+                * torch.tensor([0.5, 0.5, 0.05], dtype=torch.float64)
+            pts = M.exp(torch.tensor([[10.0, 0.0, math.pi / 2]],
+                                     dtype=torch.float64), X)
+        else:
+            pts = torch.randn(n, 1, generator=gen, dtype=torch.float64)
+            pts[: n // 3] += 6.0
+        pts = pts.float().to(dev)
+        bw = beliefs.loo_bandwidth(M, pts)
+        b = beliefs.Belief(pts, bw, bw)
+        walls = {}
+        for route, fn, k in (
+                ("kernel", lambda: beliefs.kde_logpdf(M, b, pts), reps),
+                ("plain", lambda: _kde_chunked(M, pts, bw), 3)):
+            out = fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(k):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                ts.append(e0.elapsed_time(e1) / k)
+            walls[route] = (statistics.median(ts), out)
+        lp64 = beliefs.kde_logpdf(M, beliefs.Belief(
+            pts.double(), bw.double(), bw.double()), pts.double())
+        gaps = {r: float((o.double() - lp64).abs().max())
+                for r, (_, o) in walls.items()}
+        check(gaps["kernel"] <= 2e-5, f"KDE kernel {name}: {gaps['kernel']} "
+              "from the plain route in float64")
+        print(f"PASS KDE kernel {name} {n} x {n}: kernel "
+              f"{walls['kernel'][0]:.3f} ms, plain "
+              f"{walls['plain'][0]:.1f} ms (CUDA events, medians of 3); "
+              f"largest gap to float64: kernel {gaps['kernel']:.2e}, plain "
+              f"{gaps['plain']:.2e}", flush=True)
 
 
 def phase_joint(it):
@@ -3316,6 +3411,7 @@ def main() -> int:
         handed_by_path[path] = (n_launches, handed)
         solved.append((M, name, N, fg, truth))
     phase_ppe(it, solved)
+    phase_kde_kernel()
     del solved, fg
     phase_joint(it)
     t_new = time.time()

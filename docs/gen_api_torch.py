@@ -59,6 +59,8 @@ MODULES = [
     ("Warm start of the compiled libraries (`warmstart`)", f"{P}.warmstart"),
     ("The row-logsumexp kernel (`ops.kernels.row_lse`)",
      f"{P}.ops.kernels.row_lse"),
+    ("The KDE read's kernel (`ops.kernels.kde_lse`)",
+     f"{P}.ops.kernels.kde_lse"),
     ("Spans and counters (`tracing`)", f"{P}.tracing"),
 ]
 
@@ -89,9 +91,23 @@ DEPARTURES = [
     "**Unread estimates.** `LazyPPE` reads its estimate for `!=` as for "
     "`==`; the JAX class reads it only for `==`, so there an unread "
     "estimate is neither `== {}` nor `!= {}` (`beliefs.LazyPPE`).",
-    "**Warm start.** The pack holds the two compiled libraries (the "
-    "row-logsumexp kernel and the native ordering), named by content, not "
-    "XLA programs (`warmstart`, `libcache`).",
+    "**Warm start.** The pack holds the three compiled libraries (the "
+    "row-logsumexp kernel, the KDE read's kernel and the native ordering), "
+    "named by content, not XLA programs (`warmstart`, `libcache`).",
+    "**The KDE read on the card.** `kde_logpdf` (and through it `ppe`, "
+    "`ppe_batched`, `LazyPPE`, `set_ppe` and "
+    "`ManifoldKernelDensity.logpdf`) reads `Euclidean(d)`, d up to 8, and "
+    "`SE2` by one hand-written CUDA kernel where the particles, queries "
+    "and bandwidths are float32 CUDA tensors and no gradient is asked of "
+    "them (`ops.kernels.kde_lse`); SE(3), SO(3), the circle, the sphere, "
+    "products, other dtypes and the CPU keep the chunked eager route. On "
+    "the kernel's route a row's value does not depend on the rest of the "
+    "query: the column split depends on N alone and the splits merge in a "
+    "fixed order, so a row read alone gives the bits it has in a read of "
+    "every particle. Both routes agree to float32 rounding (2e-5 in "
+    "log-density against the float64 read), not bit for bit, and the "
+    "SE(2) kernel rotates the difference of the translations where the "
+    "eager `compose(inverse(p), q)` subtracts two rotated points.",
     "**The convolution's CUDA graphs.** Where the JAX package jits the LM "
     "solve, the port (`ops.convolve.batched_gauss_newton`) solves eagerly "
     "at a signature's first call on the card, captures the whole solve as "
@@ -128,7 +144,10 @@ RECORDED = [
     "`jacobian_passes` (one an LM iteration or linear solve), and one of "
     "`conv_graph_replays`, `conv_graph_captures`, `conv_eager_solves` a "
     "`batched_gauss_newton` call.",
-    "**Bandwidth and estimates**: `bandwidth`, `kde_logpdf`.",
+    "**Bandwidth and estimates**: `bandwidth`, `kde_logpdf` (attributes "
+    "`N`, `Q`); counter `kde_pairs` where the kernel read and "
+    "`kde_eager_pairs` where the chunked eager route did (members × Q × "
+    "N).",
     "**Product** (`ops.product`, `ops.fused`): `product`; inside it one "
     "`product.draw` a pair product's call, around its draws (the rows, "
     "the drawn rows' weights, the Gumbel argmax) on every route "

@@ -16,6 +16,7 @@ import torch
 from . import tracing
 from .config import full_precision
 from .manifolds import Manifold
+from .ops.kernels import kde_lse
 
 
 class Belief(NamedTuple):
@@ -51,9 +52,10 @@ def silverman_bw(manifold: Manifold, points: torch.Tensor,
 # matrix at N=50k would be 10 GB).
 _LOO_MAX_POINTS = 512
 
-# KDE read-outs (kde_logpdf, and through it ppe and ppe_batched) take their
-# query rows, and where one row of every belief is already too many their
-# beliefs, in chunks of at most this many (query, kernel) pairs.  Eager
+# KDE read-outs on the eager route (kde_logpdf, and through it ppe and
+# ppe_batched, wherever the kernel does not read) take their query rows,
+# and where one row of every belief is already too many their beliefs, in
+# chunks of at most this many (query, kernel) pairs.  Eager
 # SE(3), the costliest manifold, holds about 201 B a pair at once, so a
 # chunk stays near 3.2 GiB up to N = 2^24 particles a belief (SE(2) 48 B a
 # pair, R¹ 16 B; tests/test_torch_ppe.py counts them), under
@@ -135,17 +137,45 @@ def kde_logpdf(manifold: Manifold, belief: Belief,
     point_dim), with ``query`` (..., Q, point_dim) and ``belief.bw``
     (..., dof) beside them.
 
-    The query rows go through in chunks of at most ``_KDE_CHUNK_PAIRS``
-    (query, kernel) pairs, each row by the same expressions as a whole
-    pass, so the read holds one chunk's tangents, never the (Q, N, dof)
-    tensor.  Where one row of every batch entry is more than a chunk, the
-    entries go through in groups, each group in row chunks of its own; only
-    a single belief of more than ``_KDE_CHUNK_PAIRS`` particles goes past
-    the chunk (one row at a time)."""
+    Two routes, chosen by what the call shows: on ``Euclidean(d)`` (d up
+    to ``kde_lse.MAX_DOF``) and ``SE2``, with float32 CUDA tensors and no
+    gradient asked, one hand-written kernel reads every (query, kernel)
+    pair in registers (``ops/kernels/kde_lse.py``; counter ``kde_pairs``),
+    and a row's value there does not depend on the rest of the query.
+    Everywhere else, the CPU included, the query rows go through in chunks
+    of at most ``_KDE_CHUNK_PAIRS`` (query, kernel) pairs, each row by the
+    same expressions as a whole pass, so the read holds one chunk's
+    tangents, never the (Q, N, dof) tensor (counter ``kde_eager_pairs``).
+    Where one row of every batch entry is more than a chunk, the entries
+    go through in groups, each group in row chunks of its own; only a
+    single belief of more than ``_KDE_CHUNK_PAIRS`` particles goes past
+    the chunk (one row at a time).  Both routes subtract the same
+    normaliser."""
     points, bw = belief.points, belief.bw
     n = points.shape[-2]
     lead = torch.broadcast_shapes(points.shape[:-2], query.shape[:-2],
                                   bw.shape[:-1])
+    pairs = math.prod(lead) * query.shape[-2] * n
+    if kde_lse.takes(manifold, points, query, bw):
+        tracing.count("kde_pairs", pairs)
+        lse = kde_lse.kde_row_logsumexp(manifold, points.contiguous(),
+                                        query.contiguous(), bw.contiguous())
+    else:
+        tracing.count("kde_eager_pairs", pairs)
+        lse = _kde_lse_chunked(manifold, points, bw, query, lead)
+    lognorm = (torch.sum(torch.log(bw), dim=-1)
+               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
+    return lse - math.log(float(n)) - lognorm[..., None]
+
+
+def _kde_lse_chunked(manifold: Manifold, points: torch.Tensor,
+                     bw: torch.Tensor, query: torch.Tensor,
+                     lead) -> torch.Tensor:
+    """:func:`kde_logpdf`'s eager route before the normaliser: the kernels'
+    logsumexp at every query row, in chunks of at most
+    ``_KDE_CHUNK_PAIRS`` pairs (batch entries in groups where one row of
+    each is already more)."""
+    n = points.shape[-2]
     if math.prod(lead) > 1 and math.prod(lead) * n > _KDE_CHUNK_PAIRS:
         g = max(1, _KDE_CHUNK_PAIRS // n)
         pf = points.expand(lead + points.shape[-2:]).reshape(
@@ -153,18 +183,16 @@ def kde_logpdf(manifold: Manifold, belief: Belief,
         qf = query.expand(lead + query.shape[-2:]).reshape(
             (-1,) + query.shape[-2:])
         bf = bw.expand(lead + bw.shape[-1:]).reshape(-1, bw.shape[-1])
-        lp = [kde_logpdf(manifold, Belief(pf[i:i + g], bf[i:i + g],
-                                          bf[i:i + g]), qf[i:i + g])
-              for i in range(0, pf.shape[0], g)]
-        return torch.cat(lp).reshape(lead + query.shape[-2:-1])
+        lse = [_kde_lse_chunked(manifold, pf[i:i + g], bf[i:i + g],
+                                qf[i:i + g], pf[i:i + g].shape[:-2])
+               for i in range(0, pf.shape[0], g)]
+        return torch.cat(lse).reshape(lead + query.shape[-2:-1])
     step = max(1, _KDE_CHUNK_PAIRS // max(math.prod(lead) * n, 1))
     P, B = points[..., None, :, :], bw[..., None, None, :]
     # an empty query still makes one (empty) chunk, for the result's shape
     lse = [_kde_row_lse(manifold, P, B, query[..., r:r + step, None, :])
            for r in range(0, query.shape[-2], step) or (0,)]
-    lognorm = (torch.sum(torch.log(bw), dim=-1)
-               + 0.5 * bw.shape[-1] * math.log(2.0 * math.pi))
-    return torch.cat(lse, dim=-1) - math.log(float(n)) - lognorm[..., None]
+    return torch.cat(lse, dim=-1)
 
 
 def _kde_row_lse(manifold: Manifold, P: torch.Tensor, B: torch.Tensor,
@@ -199,7 +227,7 @@ def mean_cov(manifold: Manifold, points: torch.Tensor):
 def _ppe_core(manifold: Manifold, pts: torch.Tensor, bw: torch.Tensor):
     """Karcher mean and max-density particle of particle sets
     ``pts`` (..., N, point_dim) with bandwidths ``bw`` (..., dof); the KDE
-    at the particles streams through :func:`kde_logpdf`'s chunks."""
+    at the particles is :func:`kde_logpdf`'s (its kernel or its chunks)."""
     mu = manifold.mean(pts)
     lp = kde_logpdf(manifold, Belief(points=pts, bw=bw, ipc=bw), pts)
     sel = (lp == torch.amax(lp, dim=-1, keepdim=True)).to(pts.dtype)

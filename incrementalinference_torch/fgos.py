@@ -6,9 +6,10 @@ accessors and FGOSUtils.jl, SolverUtilities fastnorm, TetherUtils
 cont2disc, FactorGraph.jl reshapeVec2Mat, DeconvUtils deconvSolveKey).
 Host-side structural code; beliefs stay tensors on the graph's device.
 ``get_ppe_*``, ``calc_variable_ppe`` and ``find_variables_near`` read PPEs:
-the KDE of all N particles at each of them, O(N²·dof) work, streamed in
-chunks of at most ``beliefs._KDE_CHUNK_PAIRS`` pairs, so a read holds a few
-GiB at most (SE(3), the costliest manifold) at any N the solves reach.
+the KDE of all N particles at each of them, O(N²·dof) work, streamed
+through one kernel on the card (Euclidean and SE(2)) or in chunks of at
+most ``beliefs._KDE_CHUNK_PAIRS`` pairs, so a read holds a few GiB at most
+(SE(3), the costliest manifold) at any N the solves reach.
 """
 
 from __future__ import annotations

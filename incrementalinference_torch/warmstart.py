@@ -3,11 +3,13 @@
 Counterpart of ``incrementalinference/jl_tpu/warmstart.py``.  The JAX
 package's cold start is XLA compiling its solver programs, and its pack
 ships them compiled.  The port runs eagerly and compiles no program for
-each structure: its cold start is two compiler runs at first use, nvcc of
-the row-logsumexp kernel (``ops/kernels/row_lse.py``) and g++ of the native
-ordering (``native/``).  A pack (``aotcache/cuda-sm90a/`` beside this file,
-listed in ``.gitignore``: the repository holds sources only) holds those two
-libraries under the names their loaders look up, with a ``MANIFEST.json``.
+each structure: its cold start is the compiler runs at first use, nvcc of
+the row-logsumexp kernel (``ops/kernels/row_lse.py``) and of the KDE read's
+kernel (``ops/kernels/kde_lse.py``, at the first estimate read on the card)
+and g++ of the native ordering (``native/``).  A pack
+(``aotcache/cuda-sm90a/`` beside this file, listed in ``.gitignore``: the
+repository holds sources only) holds those libraries under the names their
+loaders look up, with a ``MANIFEST.json``.
 :func:`seed_cache` copies them into the loaders' build directories, so a
 fresh process's first solve loads them instead of compiling them.  Write a
 pack on a machine with the card and nvcc::
@@ -62,16 +64,18 @@ def _pack_dir(backend: str) -> str | None:
     return src if os.path.isdir(src) else None
 
 
-def _libraries() -> dict:
-    """The port's compiled libraries by the name of their compiler."""
+def _libraries() -> tuple:
+    """The port's compiled libraries, each beside the name of its
+    compiler."""
     from .native import LIBRARY as ordering
+    from .ops.kernels.kde_lse import LIBRARY as kde
     from .ops.kernels.row_lse import LIBRARY as kernel
 
-    return {"nvcc": kernel, "g++": ordering}
+    return (("nvcc", kernel), ("nvcc", kde), ("g++", ordering))
 
 
 def _library_of(entry: str):
-    for lib in _libraries().values():
+    for _, lib in _libraries():
         if entry.startswith(f"{lib.stem}-") and entry.endswith(".so"):
             return lib
     return None
@@ -82,7 +86,7 @@ def _versions() -> dict:
     import torch
 
     out = {"torch": torch.__version__, "cuda": torch.version.cuda}
-    for name, lib in _libraries().items():
+    for name, lib in _libraries():
         try:
             out[name] = libcache.compiler_version(lib.compiler())
         except (OSError, RuntimeError, subprocess.SubprocessError):
@@ -193,7 +197,7 @@ def install_hit_counter() -> dict:
 
 
 def main(argv=None) -> int:
-    """Build both libraries from this checkout's sources into a fresh
+    """Build the libraries from this checkout's sources into a fresh
     temporary directory and write them, with a manifest, as the pack."""
     ap = argparse.ArgumentParser(
         prog="python -m incrementalinference_torch.warmstart",
@@ -207,7 +211,7 @@ def main(argv=None) -> int:
         _PACKS["cuda"])
     with tempfile.TemporaryDirectory() as tmp:
         built = []
-        for name, lib in _libraries().items():
+        for name, lib in _libraries():
             try:
                 path, seconds = lib.ensure(build_dir=tmp)
             except (OSError, RuntimeError,

@@ -284,9 +284,12 @@ def test_cpu_se2_solve_records_every_leaf_span(monkeypatch):
     assert passes[0] > 0 and c["jacobian_passes"] == passes[0]
     # no closed-form factor on SE(2): one pass an LM iteration, and the
     # residuals before and after each; on the CPU every solve (8 LM
-    # iterations each) is eager
-    assert set(c) == {"jacobian_passes", "conv_eager_solves", "draw_pairs"}
+    # iterations each) is eager, and so is the estimate read of x0 (its
+    # 24 x 24 pairs)
+    assert set(c) == {"jacobian_passes", "conv_eager_solves", "draw_pairs",
+                      "kde_eager_pairs"}
     assert c["jacobian_passes"] == 8 * c["conv_eager_solves"]
+    assert c["kde_eager_pairs"] == 24 * 24
     # every product's column draw in a span of its own, nested in the
     # product, which counts the pairs it weighs
     ids = by_id(snap)
