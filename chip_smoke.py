@@ -130,11 +130,11 @@ Phases (any failure exits non-zero before the result line; none is caught):
    and 96 of 96 per clique, with the peak memory;
    bench.py's 32-branch forest at N = 100 batched and per clique (walls)
    and profiled batched; fourdoor at N = 100 with batch_cliques=True;
-   LineStep(20) with fuse_sweep=True (a chain segment engaged); a mesh of
-   the one card (make_mesh()) and Mesh([cuda:0] * 4) under "particles",
-   "cliques" and "auto" and for the parametric tree solve, at the bars of
-   tests/test_multichip*.py; dryrun_multichip(1), entry() and the Kaess
-   solve with precompile=True;
+   LineStep(20) with fuse_sweep=True (API parity only: clique by
+   clique); a mesh of the one card (make_mesh()) and Mesh([cuda:0] * 4)
+   under "particles", "cliques" and "auto" and for the parametric tree
+   solve, at the bars of tests/test_multichip*.py; dryrun_multichip(1),
+   entry() and the Kaess solve with precompile=True;
    Then the multi-process tree solve (phase_multihost, budget 150 s):
    fifty scans of keys.cdf and ten row draws of keys.categorical from one
    key over 50,000 logits are equal; two processes share the card (collectives over gloo on host
@@ -304,7 +304,7 @@ def _manifold_setups():
 
 def manifold_cases(gen, dev):
     """Kernel inputs made as the cascade makes them (ops/fused.py
-    product_traceable) from SE(2) and SE(3) proposals: tangent coordinates
+    _product_members) from SE(2) and SE(3) proposals: tangent coordinates
     at a reference point and LOO bandwidths.  Returns (cases, probes).
     Cases, held to the kernel's bar: the two proposals the two-variable
     solves multiply at x1 (a prior at the composed pose; the other pose's
@@ -371,7 +371,7 @@ def phase_conditioning(K, probes):
     to a difference of order 1, so coordinates far from their reference
     point (in bandwidths) cost digits in the kernel and in its plain
     version alike.  The cascade never does that (it takes tangents at the
-    pooled mean, ops/fused.py product_traceable); this phase shows what a
+    pooled mean, ops/fused.py _product_members); this phase shows what a
     caller who did would get.  Each is held against the difference form
     -0.5 sum ivar (a - b)^2 in float64; bar: absolute error of the kernel
     at most 16 float32 roundings of max(a2)."""
@@ -2379,7 +2379,8 @@ def phase_batched_solves(it, K, dev, N=50_000):
     batch_cliques=False: launches and problems a solve, peak memory, the
     bars of every branch.  Then, at N=100: bench.py's 32-branch forest
     batched and per clique; fourdoor with batch_cliques=True; LineStep(20)
-    with fuse_sweep=True.  Returns the launches of the warm batched
+    with fuse_sweep=True, which solves clique by clique (the field is kept
+    for API parity only).  Returns the launches of the warm batched
     solve."""
     import incrementalinference_torch.parallel.scheduler as sched
     from incrementalinference_torch.canonical import generate_line_step
@@ -2446,18 +2447,15 @@ def phase_batched_solves(it, K, dev, N=50_000):
     for v, c in (("x1", 0.0), ("x3", 100.0), ("x4", 300.0)):
         m = float(fg.points(v)[:, 0].mean())
         check(abs(m - c) < 10.0, f"fourdoor batched {v}: {m}")
-    with _Counting(sched, "up_solve_segment") as segments:
-        fg = generate_line_step(20, graphinit=True, device=dev,
-                                params=it.SolverParams(fuse_sweep=True))
-        it.solve_tree(fg)
-    check(segments.calls >= 1, "no chain segment engaged")
+    fg = generate_line_step(20, graphinit=True, device=dev,
+                            params=it.SolverParams(fuse_sweep=True))
+    it.solve_tree(fg)
     for i in range(0, 21, 2):
         m = float(fg.points(f"x{i}").mean())
         check(abs(m - i) < 1.5, f"fuse_sweep LineStep x{i}: {m}")
     print(f"PASS fourdoor N=100 batch_cliques=True at the bars of "
-          f"tests/test_solve.py:218-229; LineStep(20) fuse_sweep=True with "
-          f"{segments.calls} segment(s) at the bars of "
-          f"tests/test_fused_chain.py:19-26", flush=True)
+          f"tests/test_solve.py:218-229; LineStep(20) fuse_sweep=True at "
+          f"the bars of tests/test_fused_chain.py:19-26", flush=True)
     return rows[1][2]["launches"], rows[1][2]["problems"], rows
 
 

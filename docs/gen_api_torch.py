@@ -138,8 +138,8 @@ RECORDED = [
     "`add_variable`, `add_factor`.",
     "**Graph build and tree**: `graphinit`, `tree`.",
     "**Sweeps** (`parallel.scheduler`): `sweep.up`, `sweep.down`, "
-    "`clique.up`, `clique.down`, `level.up`, `segment.up`, `gibbs`, "
-    "`update`, `message`.",
+    "`clique.up`, `clique.down`, `level.up`, `gibbs`, `update`, "
+    "`message`.",
     "**Convolution** (`ops.convolve`): `convolve`; counters "
     "`jacobian_passes` (one an LM iteration or linear solve), and one of "
     "`conv_graph_replays`, `conv_graph_captures`, `conv_eager_solves` a "

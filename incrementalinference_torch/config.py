@@ -88,11 +88,6 @@ class SolverParams:
     # their schedule as one batched update (one kernel launch per large
     # product stage for all of them).  Solves with skipped or delayed
     # cliques, or with round-robin devices, take the per-clique sweep.
-    # These two fields decide whether a level batches.  The attribute
-    # ``batch_stacked = False`` only picks how a batched level runs (equal
-    # update plans grouped position by position); it is kept for parity
-    # with the JAX package, which reads it the same way, and like there it
-    # is no field, so ``replace()`` does not carry it.
     batch_cliques: object = "auto"
     batch_min_width: int = 8
     # With a mesh (solve_tree(mesh=...)): the cliques outside a batched
@@ -104,9 +99,9 @@ class SolverParams:
     # True/"auto" take the clique chain, False the per-variable path; both
     # run the same update schedule.
     fuse_clique: object = "auto"
-    # Chain segments: True up-solves each run of single-child cliques
-    # through one call (ops/fused.py fused_up_segment), the inter-clique
-    # messages passed inside it; "auto" is off, as in the JAX package.
+    # Chain segments of the JAX package (API parity only): every value
+    # up-solves clique by clique, as the JAX package's "auto" does.  Kept
+    # so that a graph saved with any value loads.
     fuse_sweep: object = "auto"
     # Wildfire down-solve gate for incremental solves: a recycled clique
     # whose incoming down message moved at most this many spreads since the

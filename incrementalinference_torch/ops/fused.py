@@ -1,5 +1,5 @@
-"""Per-variable belief update, the whole-clique Gibbs chain, batched
-updates across same-level cliques and chain segments.
+"""Per-variable belief update, batched updates across same-level cliques
+and the whole-clique Gibbs chain.
 
 Counterpart of ``incrementalinference/jl_tpu/ops/fused.py``.  One variable
 update convolves every connected factor, selects each proposal's LOO
@@ -13,9 +13,7 @@ per-particle solves of all members run as one pass, the bandwidth
 selections as one batched call, and each product stage of the large-pair
 path as one kernel launch.  The single update is the batch of one.  The
 clique chain runs direct variables once and iterated variables
-``gibbs_iters`` rounds, with the same key layout as the JAX chain; a chain
-segment (:func:`fused_up_segment`) runs several cliques' chains in turn,
-each clique's output replacing the placeholder message of its parent.
+``gibbs_iters`` rounds, with the same key layout as the JAX chain.
 """
 
 from __future__ import annotations
@@ -26,31 +24,12 @@ import torch
 
 from .. import keys as _keys
 from .. import tracing
-from ..beliefs import Belief, loo_bandwidth
+from ..beliefs import loo_bandwidth
 from ..manifolds import Manifold
 from .convolve import ConvSpec, eval_factor_core_batched
-from .product import _final_draw, _members, _pair_stage, _resample
+from .product import _final_draw, _pair_stage, _resample
 
-__all__ = ["product_traceable", "fused_variable_update",
-           "fused_variable_update_batched", "fused_clique_gibbs",
-           "fused_up_segment"]
-
-
-def product_traceable(manifold: Manifold, pts_list, bw_list,
-                      static_masks: Tuple[Tuple[bool, ...], ...],
-                      old_points: torch.Tensor, key, n_out: int):
-    """Exact-cascade product with static per-proposal dim masks: dims no
-    proposal constrains keep ``old_points``' values.  With a sequence of
-    keys every tensor carries a leading member axis (points (B, N, pd),
-    bandwidths (B, dof)), each member drawing from its own key."""
-    keys, _, batched = _members(key, pts_list[0])
-    if not batched:
-        pts_list = [p[None] for p in pts_list]
-        bw_list = [b[None] for b in bw_list]
-        old_points = old_points[None]
-    out = _product_members(manifold, pts_list, bw_list, static_masks,
-                           old_points, keys, n_out)
-    return out if batched else out[0]
+__all__ = ["fused_variable_update", "fused_clique_gibbs"]
 
 
 @tracing.spanned("product", lambda manifold, pts_list, bw_list, static_masks,
@@ -172,22 +151,6 @@ def fused_variable_update(manifold: Manifold, models, var_points_nested,
         old_points, key)
 
 
-def fused_variable_update_batched(plans, keys, mesh=None):
-    """Same-structure UpdatePlans (ops/graphops.py, equal
-    ``structure_key``) as one batched update, plan b drawing from
-    ``keys[b]``.  Returns (points (B, n, pd), bw (B, dof))."""
-    p0 = plans[0]
-    fn = _make_update_batched(p0.manifold, p0.specs, p0.masks, p0.n_out,
-                              mesh)
-    models = tuple(tuple(p.models[i] for p in plans)
-                   for i in range(len(p0.models)))
-    nested = tuple(tuple(torch.stack([p.nested[i][j] for p in plans])
-                         for j in range(len(p0.nested[i])))
-                   for i in range(len(p0.nested)))
-    old = torch.stack([p.old_points for p in plans])
-    return fn(models, nested, old, list(keys))
-
-
 @tracing.spanned("gibbs", lambda direct_steps, iter_steps, n_rounds, *a,
                  **k: {"rounds": n_rounds})
 def fused_clique_gibbs(direct_steps, iter_steps, n_rounds: int,
@@ -225,40 +188,3 @@ def fused_clique_gibbs(direct_steps, iter_steps, n_rounds: int,
                 bw_of[step[0]] = apply(step, models_iter[s], sks[s])
             ibws = tuple(bw_of[step[0]] for step in iter_steps)
     return tuple(store), dbws, ibws
-
-
-def fused_up_segment(seg_static, n_rounds: int, models_d_all, models_i_all,
-                     stores, keys):
-    """Up-solve a chain of cliques, bottom first, each through its clique
-    chain (:func:`fused_clique_gibbs`).  ``seg_static`` holds per clique
-    (direct_steps, iter_steps, msg_subs); a msg_sub (which, step, factor,
-    child_slot, manifold) marks the placeholder message prior at that plan
-    position, which is rebuilt from the previous clique's output: its
-    points ``store[child_slot]`` and that slot's bandwidth, or a fresh LOO
-    bandwidth when the child did not update it (the JAX package's
-    ``_fused_segment_fn``).  Returns (store, dbws, ibws) per clique."""
-    from ..models.factors import MsgPrior
-
-    prev_store, prev_bw = None, {}
-    outs = []
-    for ci, (dsteps, isteps, msg_subs) in enumerate(seg_static):
-        models = ([list(m) for m in models_d_all[ci]],
-                  [list(m) for m in models_i_all[ci]])
-        for which, si, fi, child_slot, manifold in msg_subs:
-            pts = prev_store[child_slot]
-            bw = prev_bw.get(child_slot)
-            if bw is None:
-                bw = loo_bandwidth(manifold, pts)
-            belief = Belief(points=pts, bw=bw,
-                            ipc=torch.ones((manifold.dof,), dtype=pts.dtype,
-                                           device=pts.device))
-            models[which][si][fi] = MsgPrior(belief, manifold)
-        store, dbws, ibws = fused_clique_gibbs(
-            dsteps, isteps, n_rounds,
-            tuple(tuple(m) for m in models[0]),
-            tuple(tuple(m) for m in models[1]), stores[ci], keys[ci])
-        outs.append((store, dbws, ibws))
-        prev_store = store
-        prev_bw = {step[0]: bw for step, bw in zip(dsteps, dbws)}
-        prev_bw.update({step[0]: bw for step, bw in zip(isteps, ibws)})
-    return tuple(outs)

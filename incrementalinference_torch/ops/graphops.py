@@ -78,6 +78,23 @@ def conv_entry(fg, f, target: str, nsrp: float):
     return entry
 
 
+def update_factors(fg, target: str, factor_labels=None):
+    """The inputs of one update of ``target``: its solvable factors among
+    ``factor_labels`` (all of its factors by default) in canonical order,
+    each as (factor, ConvSpec, dim mask) with the null-surplus boost
+    applied.  Every path that makes an update reads them here: the
+    per-variable path (:func:`prepare_update`), the clique chain and the
+    stacked batched level with its class signature
+    (parallel/scheduler.py)."""
+    from .convolve import null_surplus_map
+
+    if factor_labels is None:
+        factor_labels = fg.factors_of(target)
+    factors = canonical_factors(fg, target, factor_labels)
+    nsrp = null_surplus_map(fg.params, factors)
+    return [(f, *conv_entry(fg, f, target, nsrp[f.label])) for f in factors]
+
+
 def model_structure(x):
     """The structure of a factor model, as the JAX package's
     ``tree_structure`` of it: its type, the structure of its registered
@@ -137,30 +154,26 @@ def prepare_update(fg, target: str, factor_labels: Sequence[str],
                    solve_key: str = "default", n: int | None = None):
     """Prep for one variable update: an UpdatePlan, or a (belief, ipc)
     pass-through when no solvable factor touches the target."""
-    from .convolve import _tile_to, null_surplus_map
+    from .convolve import _tile_to
 
     v = fg.var(target)
     manifold = v.manifold
     n_out = n or v.N
-    factors = canonical_factors(fg, target, factor_labels)
+    entries = update_factors(fg, target, factor_labels)
     old_points = _tile_to(fg.points(target, solve_key), n_out)
-    if not factors:
+    if not entries:
         ipc = torch.zeros((manifold.dof,), dtype=torch.float32,
                           device=old_points.device)
         return make_belief(manifold, old_points, ipc=ipc), ipc
 
-    nsrp = null_surplus_map(fg.params, factors)
-    specs, masks, models, nested = [], [], [], []
+    factors, specs, masks = zip(*entries)
+    nested = []
     for f in factors:
-        spec, mask = conv_entry(fg, f, target, nsrp[f.label])
-        specs.append(spec)
-        masks.append(mask)
-        models.append(f.model)
         var_points = [fg.points(lbl, solve_key) for lbl in f.variables]
         maxlen = max([n_out] + [p.shape[0] for p in var_points])
         nested.append(tuple(_tile_to(p, maxlen) for p in var_points))
-    return UpdatePlan(fg, target, manifold, models, nested, old_points,
-                      specs, masks, n_out, solve_key)
+    return UpdatePlan(fg, target, manifold, [f.model for f in factors],
+                      nested, old_points, specs, masks, n_out, solve_key)
 
 
 @full_precision()

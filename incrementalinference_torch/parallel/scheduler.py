@@ -24,19 +24,16 @@ least ``batch_min_width`` wide, False): a level's up-solves run in lock
 step (:func:`up_solve_level`).  Isomorphic cliques (equal
 :func:`_clique_class_signature`) keep their particles stacked along a
 member axis and every update of their schedule is one batched update
-(ops/fused.py ``_make_update_batched``).  ``batch_cliques`` decides
-whether a level batches; the attribute ``batch_stacked = False`` (no
-field of SolverParams, kept only because the JAX package reads it) only
-picks :func:`_lockstep_gibbs`, which groups equal update plans position
-by position instead.  Chain segments
-(``fuse_sweep=True``): runs of single-child cliques up-solve through one
-call (:func:`up_solve_segment`).  The down sweep stays per clique.
+(ops/fused.py ``_make_update_batched``).  Every other clique runs its
+schedule as one clique chain (ops/fused.py ``fused_clique_gibbs``), and
+the down sweep is per clique.  The inputs of every update (its factors,
+their ConvSpecs and masks) come from ops/graphops.py ``update_factors``.
 Distribution over a :class:`~.mesh.Mesh`: a batched class splits its
 members over the mesh's devices (the clique axis), a clique outside a
 batch splits its per-particle solves (the particle axis,
 ``shard_particles``), and ``devices=`` places same-level cliques round
-robin.  Batching and segments are taken only without fault injection and
-without round-robin placement, as in the JAX package.
+robin.  Batching is taken only without fault injection and without
+round-robin placement, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,19 +51,19 @@ from .. import tracing
 from ..beliefs import Belief, LazyPPE
 from ..graph import FactorGraph, Variable
 from ..graphinit import doautoinit
-from ..ops.graphops import (UpdatePlan, canonical_factors, conv_entry,
-                            ipc_of, local_product_and_update,
-                            model_structure, prepare_update)
+from ..ops.graphops import (canonical_factors, ipc_of,
+                            local_product_and_update, model_structure,
+                            update_factors)
 from ..fgos import find_factors_between_from
 from ..tree.accessors import get_cliq_vars_with_frontal_neighbors
 from ..tree.bayestree import BayesTree, Clique, CliqStatus
-from .messages import (MSG_TAG, LikelihoodMessage, add_msg_factors,
-                       prep_msg_down, prep_msg_up)
+from .messages import (LikelihoodMessage, add_msg_factors, prep_msg_down,
+                       prep_msg_up)
 
 __all__ = ["build_clique_subgraph", "transfer_update_subgraph",
            "add_down_variable_factors", "up_solve_clique",
            "down_solve_clique", "solve_tree_sweeps", "up_solve_level",
-           "up_solve_segment", "cliq_var_init_order_up", "CliqueTrace"]
+           "cliq_var_init_order_up", "CliqueTrace"]
 
 logger = logging.getLogger(__name__)
 
@@ -330,11 +327,7 @@ def _build_chain_plan(sub: FactorGraph, direct: List[str],
     """The whole-clique chain plan over the subgraph (message factors
     included).  Returns (plan, store, live): plan is a dict of steps,
     models and masks, or True (nothing to solve) / False (the clique needs
-    the per-variable path: mixed particle counts).  The plan's
-    ``labels_*`` name each step's factors, in the order of its models."""
-    from ..ops.convolve import null_surplus_map
-
-    params = sub.params
+    the per-variable path: mixed particle counts)."""
     live = list(sub.variables)
     local = {v: i for i, v in enumerate(live)}
 
@@ -350,32 +343,24 @@ def _build_chain_plan(sub: FactorGraph, direct: List[str],
         return False, None, live
 
     plan = {"direct": [], "iter": [], "models_direct": [],
-            "models_iter": [], "labels_direct": [], "labels_iter": [],
-            "touched": {}}
+            "models_iter": [], "touched": {}}
     for var in dvs + ivs:
         v = sub.var(var)
-        factors = canonical_factors(sub, var, sub.factors_of(var))
-        if not factors:
+        entries = update_factors(sub, var)
+        if not entries:
             continue
+        factors, specs, masks = zip(*entries)
         if v.N != store[local[var]].shape[0]:
             return False, None, live
         if any(lbl not in local for f in factors for lbl in f.variables):
             return False, None, live
-        nsrp = null_surplus_map(params, factors)
-        specs, masks, models, fvidx = [], [], [], []
-        for f in factors:
-            spec, mask = conv_entry(sub, f, var, nsrp[f.label])
-            specs.append(spec)
-            masks.append(mask)
-            models.append(f.model)
-            fvidx.append(tuple(local[lbl] for lbl in f.variables))
-        step = (local[var], v.manifold, tuple(specs), tuple(masks), v.N,
-                tuple(fvidx))
+        step = (local[var], v.manifold, specs, masks, v.N,
+                tuple(tuple(local[lbl] for lbl in f.variables)
+                      for f in factors))
         which = "direct" if var in dvs else "iter"
         plan[which].append(step)
-        plan["models_" + which].append(tuple(models))
-        plan["labels_" + which].append(tuple(f.label for f in factors))
-        plan["touched"][local[var]] = tuple(masks)
+        plan["models_" + which].append(tuple(f.model for f in factors))
+        plan["touched"][local[var]] = masks
     if not plan["direct"] and not plan["iter"]:
         return True, None, live
     return plan, store, live
@@ -574,187 +559,6 @@ def _particle_mesh(params, mesh):
     return mesh if sp in (True, "auto") else None
 
 
-def _use_sweep(params) -> bool:
-    """``fuse_sweep``: True fuses chain segments; "auto" resolves to off,
-    as in the JAX package (there the merged program compiled and ran
-    slower than the per-clique chains)."""
-    fs = getattr(params, "fuse_sweep", "auto")
-    return fs is True
-
-
-def _segment_eligible(fg: FactorGraph, cl: Clique, solve_key: str) -> bool:
-    """A clique can join a chain segment when its up-solve needs no
-    host-side control flow: fully initialized, neither recycled nor
-    marginalized."""
-    if cl.is_marginalized or (cl.is_recycled
-                              and cl.status == CliqStatus.UPRECYCLED):
-        return False
-    return all(fg.var(v).is_initialized(solve_key) for v in cl.all_vars)
-
-
-def _find_up_segments(fg: FactorGraph, tree: BayesTree, skip_set,
-                      delay_cliques, dev_of, solve_key: str,
-                      excluded: Optional[set] = None
-                      ) -> Dict[int, List[Clique]]:
-    """Maximal chains (at least two long) of single-child eligible cliques,
-    keyed by the bottom clique's id."""
-    if fg.params.use_msg_likelihoods:
-        return {}
-    excluded = excluded or set()
-    in_chain: Dict[int, int] = {}
-    segments: Dict[int, List[Clique]] = {}
-
-    def blocked(cid):
-        return (cid in skip_set or cid in delay_cliques or cid in dev_of
-                or cid in excluded)
-
-    for cid0 in [cid for level in reversed(tree.levels()) for cid in level]:
-        cl = tree.clique(cid0)
-        if cl.cid in in_chain or blocked(cl.cid) or \
-                not _segment_eligible(fg, cl, solve_key):
-            continue
-        chain = [cl]
-        cur = cl
-        while cur.parent is not None:
-            par = tree.clique(cur.parent)
-            if par.children != [cur.cid] or blocked(par.cid) \
-                    or par.cid in in_chain \
-                    or not _segment_eligible(fg, par, solve_key):
-                break
-            chain.append(par)
-            cur = par
-        if len(chain) >= 2:
-            for c in chain:
-                in_chain[c.cid] = chain[0].cid
-            segments[chain[0].cid] = chain
-    return segments
-
-
-@tracing.spanned("segment.up", lambda fg, tree, chain, *a, **k: {
-    "cids": [cl.cid for cl in chain]})
-def up_solve_segment(fg: FactorGraph, tree: BayesTree, chain: List[Clique],
-                     bottom_msgs: List[LikelihoodMessage], solve_key: str,
-                     trace_for) -> Optional[Dict[int, LikelihoodMessage]]:
-    """Up-solve a chain of cliques bottom first through one call
-    (ops/fused.py ``fused_up_segment``): each clique's up message reaches
-    its parent inside that call, in place of a placeholder message built
-    from the graph's current beliefs.  Returns the up messages of every
-    clique (the down sweep still reads them), or None when a member needs
-    the general path (the caller then solves clique by clique)."""
-    from ..ops.fused import fused_up_segment
-
-    seg_static, models_d_all, models_i_all = [], [], []
-    stores, keys, metas = [], [], []
-    prev_live: Optional[List[str]] = None
-    prev_cl: Optional[Clique] = None
-    for idx, cl in enumerate(chain):
-        sub = build_clique_subgraph(fg, cl)
-        msg_var: Dict[str, str] = {}
-        if idx == 0:
-            for m in bottom_msgs:
-                if m.status == CliqStatus.ERROR_STATUS:
-                    return None
-                add_msg_factors(sub, m)
-        else:
-            pm = LikelihoodMessage(sender=prev_cl.cid,
-                                   status=CliqStatus.UPSOLVED,
-                                   direction="up")
-            for vlbl in prev_cl.separator:
-                if vlbl in fg.variables and \
-                        solve_key in fg.var(vlbl).beliefs:
-                    pm.beliefs[vlbl] = fg.get_belief(vlbl, solve_key)
-            for fl in add_msg_factors(sub, pm):
-                msg_var[fl] = fl.split(f"_{MSG_TAG}_")[0]
-            if set(msg_var.values()) != set(prev_cl.separator):
-                return None
-        plan, store, live = _build_chain_plan(sub, cl.direct_vars,
-                                              cl.iter_vars, solve_key)
-        if plan is True or plan is False:
-            return None
-        msg_subs = []
-        if idx > 0:
-            child_local = {v: i for i, v in enumerate(prev_live)}
-            for which, groups in ((0, plan["labels_direct"]),
-                                  (1, plan["labels_iter"])):
-                for si, fls in enumerate(groups):
-                    for fi, fl in enumerate(fls):
-                        vl = msg_var.get(fl)
-                        if vl is not None:
-                            msg_subs.append((which, si, fi, child_local[vl],
-                                             sub.var(vl).manifold))
-        seg_static.append((plan["direct"], plan["iter"], tuple(msg_subs)))
-        models_d_all.append(plan["models_direct"])
-        models_i_all.append(plan["models_iter"])
-        stores.append(tuple(store))
-        keys.append(fg.next_key())
-        metas.append((cl, sub, live, plan))
-        prev_live, prev_cl = live, cl
-
-    outs = fused_up_segment(seg_static, fg.params.gibbs_iters, models_d_all,
-                            models_i_all, stores, keys)
-    up_out: Dict[int, LikelihoodMessage] = {}
-    for (cl, sub, live, plan), (store, dbws, ibws) in zip(metas, outs):
-        bw_of = {s[0]: bw for s, bw in zip(plan["direct"], dbws)}
-        bw_of.update({s[0]: bw for s, bw in zip(plan["iter"], ibws)})
-        for li, masks in plan["touched"].items():
-            sub.set_belief(live[li], store[li], solve_key=solve_key,
-                           bw=bw_of[li], ipc=ipc_of(masks, sub.device))
-        cl.status = CliqStatus.UPSOLVED
-        up_out[cl.cid] = prep_msg_up(sub, cl, CliqStatus.UPSOLVED, solve_key)
-        transfer_update_subgraph(fg, sub, cl.frontals, solve_key)
-        tr = trace_for(cl.cid)
-        tr.log("up_gibbs", "fused-segment")
-        tr.log("up_done")
-    return up_out
-
-
-def _lockstep_gibbs(fg: FactorGraph, subs: Dict[int, FactorGraph],
-                    cliques: List[Clique], solve_key: str) -> None:
-    """Lock-step Gibbs across a level's cliques: position p of every
-    clique's update sequence runs in the same round, and the updates of
-    equal structure run as one batched update (ops/fused.py
-    ``fused_variable_update_batched``).  Within a clique the update order
-    is that of the per-variable path.  Taken only under the attribute
-    ``batch_stacked = False``, which the JAX package reads and the port
-    keeps for parity; :func:`_lockstep_gibbs_stacked` is the default."""
-    from ..ops.fused import (fused_variable_update,
-                             fused_variable_update_batched)
-
-    params = fg.params
-    sequences = {cl.cid: list(cl.direct_vars)
-                 + list(cl.iter_vars) * params.gibbs_iters
-                 for cl in cliques}
-    max_len = max((len(q) for q in sequences.values()), default=0)
-    for pos in range(max_len):
-        groups: Dict = {}
-        for cl in cliques:
-            seq = sequences[cl.cid]
-            if pos >= len(seq) or subs[cl.cid].var(seq[pos]).marginalized:
-                continue
-            sub, var = subs[cl.cid], seq[pos]
-            plan = prepare_update(sub, var, sub.factors_of(var),
-                                  solve_key=solve_key)
-            if isinstance(plan, UpdatePlan):
-                groups.setdefault(plan.structure_key, []).append(
-                    (plan, cl.cid, var))
-        for entries in groups.values():
-            keys = [subs[cid].next_key() for _, cid, _ in entries]
-            if len(entries) == 1:
-                plan, cid, var = entries[0]
-                pts, bw = fused_variable_update(
-                    plan.manifold, plan.models, plan.nested,
-                    plan.old_points, plan.specs, plan.masks, keys[0],
-                    plan.n_out)
-                subs[cid].set_belief(var, pts, solve_key=solve_key, bw=bw,
-                                     ipc=plan.ipc())
-                continue
-            pts_b, bw_b = fused_variable_update_batched(
-                [e[0] for e in entries], keys)
-            for b, (plan, cid, var) in enumerate(entries):
-                subs[cid].set_belief(var, pts_b[b], solve_key=solve_key,
-                                     bw=bw_b[b], ipc=plan.ipc())
-
-
 @tracing.spanned("level.up", lambda fg, tree, cliques, *a, **k: {
     "cids": [cl.cid for cl in cliques]})
 def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
@@ -800,10 +604,7 @@ def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
         active.append(cl)
 
     if active:
-        if getattr(fg.params, "batch_stacked", True):
-            _lockstep_gibbs_stacked(fg, subs, active, solve_key, mesh=mesh)
-        else:
-            _lockstep_gibbs(fg, subs, active, solve_key)
+        _lockstep_gibbs_stacked(fg, subs, active, solve_key, mesh=mesh)
 
     for cl in active:
         t = traces.get(cl.cid) or CliqueTrace(cl.cid, keep=False)
@@ -815,28 +616,19 @@ def up_solve_level(fg: FactorGraph, tree: BayesTree, cliques: List[Clique],
     return out
 
 
-def _canonical_factors(sub: FactorGraph, var: str):
-    return canonical_factors(sub, var, sub.factors_of(var))
-
-
 def _clique_class_signature(sub: FactorGraph, clique: Clique,
                             solve_key: str):
     """The structure of a clique's local solve: cliques with equal
     signatures run their whole Gibbs schedules stacked."""
-    from ..ops.convolve import null_surplus_map
-
     local = {v: i for i, v in enumerate(clique.all_vars)}
-    params = sub.params
     seq = list(clique.direct_vars) + list(clique.iter_vars) \
-        * params.gibbs_iters
+        * sub.params.gibbs_iters
     sig = []
     for var in seq:
-        fs = _canonical_factors(sub, var)
-        nsrp = null_surplus_map(params, fs)
         fsig = tuple((model_structure(f.model),
                       tuple(local[v] for v in f.variables if v in local),
-                      conv_entry(sub, f, var, nsrp[f.label])[0])
-                     for f in fs)
+                      spec)
+                     for f, spec, _ in update_factors(sub, var))
         v = sub.var(var)
         sig.append((local[var], v.N, v.manifold, fsig))
     return tuple(sig)
@@ -845,8 +637,8 @@ def _clique_class_signature(sub: FactorGraph, clique: Clique,
 def _member_factors(sub: FactorGraph, member: Clique, rep: Clique,
                     var: str, rep_factors) -> list:
     """The member's factors for the representative's update of ``var``,
-    one to one with ``rep_factors`` (``_canonical_factors`` of the
-    representative): the member's own canonical factors of the variable at
+    one to one with ``rep_factors`` (the representative's canonical
+    factors): the member's own canonical factors of the variable at
     the same local position.  Equal class signatures give equal structure
     position by position, so two factors of one kind on the same variables
     (the message priors of two children with a shared separator, two
@@ -854,7 +646,8 @@ def _member_factors(sub: FactorGraph, member: Clique, rep: Clique,
     the first factor of the right kind and positions instead, which maps
     both of such a pair onto one of them."""
     local_rep = {v: i for i, v in enumerate(rep.all_vars)}
-    mine = _canonical_factors(sub, member.all_vars[local_rep[var]])
+    mvar = member.all_vars[local_rep[var]]
+    mine = canonical_factors(sub, mvar, sub.factors_of(mvar))
     if len(mine) != len(rep_factors):
         raise KeyError(f"clique {member.cid} has {len(mine)} factors on "
                        f"{member.all_vars[local_rep[var]]}, the class "
@@ -918,7 +711,6 @@ def _lockstep_gibbs_stacked(fg: FactorGraph, subs: Dict[int, FactorGraph],
     is padded with copies of its last member to a multiple of that number
     and split over the devices, a contiguous chunk each (the JAX package
     shards the member axis); the copies' results are dropped."""
-    from ..ops.convolve import null_surplus_map
     from ..ops.fused import _make_update_batched
 
     classes: Dict = {}
@@ -954,29 +746,24 @@ def _lockstep_gibbs_stacked(fg: FactorGraph, subs: Dict[int, FactorGraph],
         seq = list(rep.direct_vars) + list(rep.iter_vars) * params.gibbs_iters
         for var in seq:
             li = local[var]
-            fs = _canonical_factors(rep_sub, var)
-            if not fs:
+            entries = update_factors(rep_sub, var)
+            if not entries:
                 continue
-            manifold = rep_sub.var(var).manifold
-            nsrp = null_surplus_map(params, fs)
+            fs, specs, masks = zip(*entries)
             theirs = [_member_factors(subs[m.cid], m, rep, var, fs)
                       for m in stackees]
-            specs, masks, models, nested = [], [], [], []
-            for k, f in enumerate(fs):
-                spec, mask = conv_entry(rep_sub, f, var, nsrp[f.label])
-                specs.append(spec)
-                masks.append(mask)
-                models.append(tuple(mf[k].model for mf in theirs))
-                nested.append(tuple(store[local[v]] for v in f.variables))
-            fn = _make_update_batched(manifold, tuple(specs), tuple(masks),
-                                      rep_sub.var(var).N)
+            models = tuple(tuple(mf[k].model for mf in theirs)
+                           for k in range(len(fs)))
+            nested = tuple(tuple(store[local[v]] for v in f.variables)
+                           for f in fs)
+            fn = _make_update_batched(rep_sub.var(var).manifold, specs,
+                                      masks, rep_sub.var(var).N)
             keys = _keys.split(fg.next_key(), len(stackees))
-            pts, bw = _run_members(fn, tuple(models), tuple(nested),
-                                   store[li], keys, class_mesh,
-                                   store[li].device)
+            pts, bw = _run_members(fn, models, nested, store[li], keys,
+                                   class_mesh, store[li].device)
             store[li] = pts
             bw_out[li] = bw
-            ipc_out[li] = ipc_of(tuple(masks), pts.device)
+            ipc_out[li] = ipc_of(masks, pts.device)
         for b, m in enumerate(members):
             sub = subs[m.cid]
             for i in bw_out:
@@ -1019,21 +806,19 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
     unless ``params.record_cliques``).
 
     Levels that ``batch_cliques`` selects up-solve as one batch
-    (:func:`up_solve_level`), and with ``fuse_sweep=True`` chains of
-    single-child cliques as one segment (:func:`up_solve_segment`; a
-    segment that raises fails its bottom clique, as a clique's solve
-    does).  ``mesh`` splits batched classes over its devices, and the
-    per-particle solves of every other clique (``shard_particles``);
-    ``devices`` places the cliques of each level round robin.
+    (:func:`up_solve_level`); every other clique up-solves on its own
+    (:func:`up_solve_clique`).  ``mesh`` splits batched classes over its
+    devices, and the per-particle solves of every other clique
+    (``shard_particles``); ``devices`` places the cliques of each level
+    round robin.
 
     Fault injection (reference solveTree! skipcliqids, delaycliqs and
     timeout): ``skip_cliques`` are logged and left untouched;
     ``delay_cliques`` maps a clique to seconds slept before its up-solve;
     ``timeout`` is a wall-clock budget in seconds, checked between clique
     solves: once it has expired, each clique reached is marked
-    ERROR_STATUS, as a failed one is.  Batched levels and segments are
-    taken only without skipped or delayed cliques and without
-    ``devices``."""
+    ERROR_STATUS, as a failed one is.  Batched levels are taken only
+    without skipped or delayed cliques and without ``devices``."""
     traces: Dict[int, CliqueTrace] = {}
     levels = tree.levels()
     up_msgs: Dict[int, LikelihoodMessage] = {}
@@ -1101,20 +886,11 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                     up_msgs[cl.cid] = error_msg(cl.cid)
 
     def run_up(only: Optional[set] = None) -> None:
-        segments: Dict[int, List[Clique]] = {}
-        if only is None and _use_sweep(params):
-            segments = _find_up_segments(
-                fg, tree, skip_set, delay_cliques, dev_of, solve_key,
-                excluded={cid for level in levels if batch_level(level)
-                          for cid in level})
-        seg_handled: set = set()
         for level in reversed(levels):
             if only is None and batch_level(level):
                 solve_level(level)
                 continue
             for cid in level:
-                if cid in seg_handled:
-                    continue
                 if only is not None and (cid not in only
                                          or cid in skip_set):
                     continue
@@ -1133,19 +909,6 @@ def solve_tree_sweeps(fg: FactorGraph, tree: BayesTree,
                 else:
                     if record:
                         tr.child_msgs = list(child_msgs)
-                    if cid in segments:
-                        try:
-                            out = up_solve_segment(fg, tree, segments[cid],
-                                                   child_msgs, solve_key,
-                                                   trace_for)
-                        except Exception as e:  # noqa: BLE001
-                            failed(cl, tr, e)
-                            up_msgs[cid] = error_msg(cid)
-                            continue
-                        if out is not None:
-                            up_msgs.update(out)
-                            seg_handled.update(c.cid for c in segments[cid])
-                            continue
                     if cid in skip_set:
                         tr.log("skip", "skip_cliques fault injection")
                         up_msgs[cid] = LikelihoodMessage(

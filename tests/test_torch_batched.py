@@ -1,7 +1,8 @@
-"""The batched same-level clique solve and chain segments in the port
-(parallel/scheduler.py up_solve_level, up_solve_segment; ops/fused.py
-_make_update_batched, fused_up_segment; the row-logsumexp's member axis),
-held against the JAX package and against the per-member path.
+"""The batched same-level clique solve in the port (parallel/scheduler.py
+up_solve_level; ops/fused.py _make_update_batched; the row-logsumexp's
+member axis), held against the JAX package and against the per-member
+path; the inputs every update takes from ops/graphops.py
+update_factors; fuse_sweep as a field kept for API parity only.
 
 Every test stands alone: under pytest-xdist's ``--dist load`` one file's
 tests run on several workers."""
@@ -22,7 +23,9 @@ import incrementalinference_torch.parallel.scheduler as sched
 from incrementalinference.jl_tpu.ops.kernels import pallas_product as jk
 from incrementalinference_torch import keys
 from incrementalinference_torch.ops import fused, product as tp
-from incrementalinference_torch.ops.graphops import prepare_update
+from incrementalinference_torch.ops.graphops import (model_structure,
+                                                    prepare_update,
+                                                    update_factors)
 from incrementalinference_torch.ops.kernels import row_lse as K
 
 CPU = "cpu"
@@ -87,6 +90,22 @@ def _two_var_members(B, N, shift=None):
     return plans
 
 
+def _batched_update(plans, keys):
+    """Same-structure UpdatePlans as one batched update of the members
+    (ops/fused.py _make_update_batched), plan b drawing from ``keys[b]``.
+    Returns (points (B, n, pd), bw (B, dof))."""
+    p0 = plans[0]
+    fn = fused._make_update_batched(p0.manifold, p0.specs, p0.masks,
+                                    p0.n_out)
+    models = tuple(tuple(p.models[i] for p in plans)
+                   for i in range(len(p0.models)))
+    nested = tuple(tuple(torch.stack([p.nested[i][j] for p in plans])
+                         for j in range(len(p0.nested[i])))
+                   for i in range(len(p0.nested)))
+    old = torch.stack([p.old_points for p in plans])
+    return fn(models, nested, old, list(keys))
+
+
 def _assert_members_agree(plans, batched, flip_bar=0.005):
     """Batched (points, bw) against each plan's own update with the same
     key: particles within 1e-5 but for draws that flipped at a near-tie
@@ -112,12 +131,12 @@ def test_batched_update_matches_members_on_the_large_pair_path(monkeypatch):
     plans = _two_var_members(3, 256)
     K.reset_counts()
     ks = keys.split(keys.make_key(3), 3)
-    fused.fused_variable_update_batched(plans, ks)
+    _batched_update(plans, ks)
     # x1's two proposals (the relative's and the prior's): one pair stage,
     # one call for the 3 members
     assert K.counts["calls"] == 1
     assert K.counts["launches"] == 0          # no kernel on the CPU
-    _assert_members_agree(plans, fused.fused_variable_update_batched)
+    _assert_members_agree(plans, _batched_update)
 
 
 class _Shift(it.FactorModel):
@@ -174,7 +193,7 @@ def test_batched_update_reads_each_members_residual(model):
     when the model says how (residual_params), else each member solved
     alone; both agree with the per-member update, keys equal."""
     plans = _two_var_members(3, 64, shift=model)
-    _assert_members_agree(plans, fused.fused_variable_update_batched)
+    _assert_members_agree(plans, _batched_update)
 
 
 def _count_calls(monkeypatch, name):
@@ -219,14 +238,17 @@ def _forest(mod, params, branches=12):
 @pytest.mark.parametrize("stacked", [True, False])
 def test_auto_batched_wide_level(monkeypatch, stacked):
     """(c) tests/test_solve.py:297 on the port: "auto" at width 4 batches
-    the 12-branch level, in one class (stacked) or grouped plan by plan
-    (``batch_stacked=False``), at the JAX test's bars."""
+    the 12-branch level as one stacked class, at the JAX test's bars.  The
+    JAX package's attribute ``batch_stacked = False`` changes nothing: the
+    level runs stacked all the same."""
     calls = _count_calls(monkeypatch, "up_solve_level")
+    stacks = _count_calls(monkeypatch, "_lockstep_gibbs_stacked")
     fg = _forest(it, it.SolverParams(batch_cliques="auto",
                                      batch_min_width=4))
     fg.params.batch_stacked = stacked
     it.solve_tree(fg)
     assert calls["n"] == 1
+    assert stacks["n"] == 1
     for b in range(12):
         m = float(fg.points(f"b{b}x1").mean())
         assert abs(m - (10 * b + 1)) < 1.5, (b, m)
@@ -341,33 +363,89 @@ def test_batched_level_keeps_each_factor_of_a_kind(monkeypatch, pair):
     assert abs(bias["auto"] - bias[False]) < 0.6, (pair, bias)
 
 
-def test_fused_segment_matches_per_clique(monkeypatch):
-    """(e) tests/test_fused_chain.py:64 on the port: fuse_sweep=True
-    engages a segment, and the segment solve and the per-clique solve both
-    hold the JAX test's bars."""
-    calls = _count_calls(monkeypatch, "up_solve_segment")
-    means = {}
-    for fs in (True, False):
-        fg = it.generate_line_step(
-            8, graphinit=True, device=CPU,
-            params=it.SolverParams(N=75, fuse_sweep=fs, fuse_clique=True))
-        it.solve_tree(fg)
-        means[fs] = {lbl: float(fg.points(lbl)[:, 0].mean())
-                     for lbl in fg.ls()}
-    assert calls["n"] >= 1, "segment fusion did not engage"
-    for lbl, m in means[True].items():
-        truth = float(lbl.lstrip("xlm"))
-        assert abs(m - truth) < 0.5, (lbl, m)
-        assert abs(means[False][lbl] - truth) < 0.5, (lbl, means[False])
+def test_update_inputs_agree_across_callers(monkeypatch):
+    """On _forest's batched level, the clique chain's plan, the
+    per-variable path's prepare_update and the stacked level (the
+    arguments _make_update_batched gets, in schedule order) hold, for each
+    variable of the class's representative, the specs, masks and model
+    structures of update_factors, and the class signature its specs."""
+    fg = _forest(it, it.SolverParams(batch_cliques="auto",
+                                     batch_min_width=4))
+    tree = it.build_tree(fg)
+    level = next(lv for lv in tree.levels() if len(lv) == 12)
+    cls = [tree.clique(cid) for cid in level]
+    rep = cls[0]
+    sub = sched.build_clique_subgraph(fg, rep)
+
+    def inputs(entries):
+        return (tuple(spec for _, spec, _ in entries),
+                tuple(mask for _, _, mask in entries),
+                tuple(model_structure(f.model) for f, _, _ in entries))
+
+    want = {v: inputs(update_factors(sub, v)) for v in rep.all_vars}
+    assert all(want[v][0] for v in rep.all_vars)
+
+    plan, _, live = sched._build_chain_plan(sub, list(rep.direct_vars),
+                                            list(rep.iter_vars))
+    chain = {}
+    for which in ("direct", "iter"):
+        for step, models in zip(plan[which], plan["models_" + which]):
+            chain[live[step[0]]] = (step[2], step[3],
+                                    tuple(model_structure(m)
+                                          for m in models))
+    assert chain == want
+
+    for v in rep.all_vars:
+        p = prepare_update(sub, v, sub.factors_of(v))
+        assert (p.specs, p.masks,
+                tuple(model_structure(m) for m in p.models)) == want[v]
+
+    sig = sched._clique_class_signature(sub, rep, "default")
+    seq = list(rep.direct_vars) + list(rep.iter_vars) * fg.params.gibbs_iters
+    assert [tuple(e[2] for e in s[3]) for s in sig] \
+        == [want[v][0] for v in seq]
+
+    seen = []
+    orig = fused._make_update_batched
+
+    def recording(manifold, specs, masks, n_out, mesh=None):
+        fn = orig(manifold, specs, masks, n_out, mesh)
+
+        def run(models, nested, old, ks):
+            structs = {tuple(model_structure(ms[b]) for ms in models)
+                       for b in range(len(ks))}
+            assert len(structs) == 1 and len(ks) == 12
+            seen.append((specs, masks, structs.pop()))
+            return fn(models, nested, old, ks)
+
+        return run
+
+    monkeypatch.setattr(fused, "_make_update_batched", recording)
+    sched.up_solve_level(fg, tree, cls, {})
+    assert seen == [want[v] for v in seq]
 
 
-def test_fuse_sweep_auto_is_off(monkeypatch):
-    """"auto" resolves to off, as in the JAX package."""
-    calls = _count_calls(monkeypatch, "up_solve_segment")
-    fg = it.generate_line_step(4, graphinit=True, device=CPU,
-                               params=it.SolverParams(N=50))
-    it.solve_tree(fg)
-    assert calls["n"] == 0
+@pytest.mark.parametrize("fs", [True, False, "auto"])
+def test_fuse_sweep_is_parity_only(monkeypatch, fs):
+    """(e) tests/test_fused_chain.py:64 on the port: whatever fuse_sweep
+    says, every clique of LineStep(8) up-solves on its own, and every mean
+    holds the JAX test's bar."""
+    cids = []
+    orig = sched.up_solve_clique
+
+    def recording(fg, tree, clique, *a, **k):
+        cids.append(clique.cid)
+        return orig(fg, tree, clique, *a, **k)
+
+    monkeypatch.setattr(sched, "up_solve_clique", recording)
+    fg = it.generate_line_step(
+        8, graphinit=True, device=CPU,
+        params=it.SolverParams(N=75, fuse_sweep=fs, fuse_clique=True))
+    tree = it.solve_tree(fg)
+    assert sorted(set(cids)) == sorted(tree.cliques)
+    for lbl in fg.ls():
+        m = float(fg.points(lbl)[:, 0].mean())
+        assert abs(m - float(lbl.lstrip("xlm"))) < 0.5, (lbl, m)
 
 
 def _chain(mod, N):
