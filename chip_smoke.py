@@ -31,10 +31,10 @@ Phases (any failure exits non-zero before the result line; none is caught):
    Then the warm start (phase_warmstart, budget 90 s): the pack written
    from phase 1's libraries; two fresh processes, one after the other, on
    a copy of the package without build directories solve phases 3 and
-   4's graphs at their bars: one seeds from the pack (2 hits, no miss, no
+   4's graphs at their bars: one seeds from the pack (3 hits, no miss, no
    compiler run), the other from a pack whose only entry is a kernel
    carrying another source's digest, never looked up (both compilers run,
-   2 misses); their walls from launch side by side. condense_mixture
+   3 misses); their walls from launch side by side. condense_mixture
    (phase_condense): 50 runs at N = 20,000, dof 1 and 3, k = 256,
    bit-equal, timed beside the index_add_ form it replaced; the
    two-variable graph at N = 4,096 through the condensed product stages
@@ -42,9 +42,11 @@ Phases (any failure exits non-zero before the result line; none is caught):
    and N = 50,000 two-variable graphs solved twice at the default setting
    and once under a caller's set_float32_matmul_precision("high"), the
    posteriors bit-equal, every _pair_logW and condense_mixture call in
-   "ieee", "high" given back; the TF32 - IEEE gap of _pair_logW and
-   condense_mixture on those solves' inputs, and of _pair_logW at dof 2,
-   3, 6 and 8, where the pinned call under "high" must equal IEEE.
+   "ieee", "high" given back; the TF32 - IEEE gap of condense_mixture on
+   the N = 4,096 solve's inputs, of _pair_logW on 2,048-row blocks of the
+   N = 50,000 solve's large pair products (whose kernels run no matmul),
+   and of _pair_logW at dof 2, 3, 6 and 8, where the pinned call under
+   "high" must equal IEEE.
    Concurrent solves, one graph per thread (phase_threads, budget 45 s):
    (a) two threads each build and solve the N = 50,000 two-variable graph
    (seeds 1 and 2) on the default stream, released by one barrier: 12 + 12
@@ -95,7 +97,11 @@ Phases (any failure exits non-zero before the result line; none is caught):
    (ops/kernels/kde_lse.py) against the one-pass form in float64 (2e-5;
    the chosen particle within 1e-5 of the best); that kernel at 50k x 50k
    on SE(2) and Euclidean(1), timed by CUDA events beside its eager chunks
-   and held to the float64 read (phase_kde_kernel, 2e-5);
+   and held to the float64 read (phase_kde_kernel, 2e-5); the large pair
+   product's column-draw kernel (ops/kernels/pair_draw.py) at 50k x 50k,
+   dof 1 and 3, timed beside its plain version and the eager block draw it
+   replaced, the rows where kernel and plain version part on the same
+   uniforms at most 1e-4 (phase_draw_kernel);
    LineStep(20) once more with joint up-messages (use_msg_likelihoods);
    Then the model families and the graph and tree surfaces, each solve
    through ``solve_tree`` on CUDA at N = 50,000 with the kernel's launch
@@ -521,6 +527,7 @@ t_launch = float(sys.argv[1])
 import torch
 import incrementalinference_torch as it
 from incrementalinference_torch import native, warmstart
+from incrementalinference_torch.ops.kernels import pair_draw as D
 from incrementalinference_torch.ops.kernels import row_lse as K
 
 report = {}
@@ -556,7 +563,8 @@ out["two_var"] = {v: [float(fg.points(v)[:, 0].mean()),
                       float(fg.points(v)[:, 0].std())]
                   for v in ("x0", "x1")}
 out["launches"] = K.counts["launches"]
-out["build_seconds"] = [K.build_seconds, native.build_seconds]
+out["build_seconds"] = [K.build_seconds, D.build_seconds,
+                        native.build_seconds]
 out["kernel_path"] = K.LIBRARY.path()
 out["kernel_dir"] = sorted(os.listdir(K.LIBRARY.build_dir))
 out["counts"] = counts
@@ -587,9 +595,10 @@ def _warm_child(root):
     return res
 
 
-def _mismatch_pack(pack, kernel, ordering, root):
+def _mismatch_pack(pack, kernel, others, root):
     """Leave in ``pack`` only the kernel's entry, renamed to the name a
-    build of another source would carry, file and manifest; returns it."""
+    build of another source would carry, file and manifest (the
+    ``others`` libraries' entries removed); returns it."""
     edited = os.path.join(root, "row_lse.cu")
     shutil.copyfile(kernel.src, edited)
     with open(edited, "a") as fp:
@@ -597,7 +606,8 @@ def _mismatch_pack(pack, kernel, ordering, root):
     other = os.path.basename(dataclasses.replace(kernel, src=edited).path())
     name = os.path.basename(kernel.path())
     os.rename(os.path.join(pack, name), os.path.join(pack, other))
-    os.remove(os.path.join(pack, os.path.basename(ordering.path())))
+    for lib in others:
+        os.remove(os.path.join(pack, os.path.basename(lib.path())))
     with open(os.path.join(pack, "MANIFEST.json")) as fp:
         man = json.load(fp)
     entry = man["entries"].pop(name)
@@ -616,20 +626,23 @@ def phase_warmstart(it, K):
     other.  The pack is written from the libraries phase 1 built (no second
     compiler run in this process).  A: the copy seeds from the pack and
     solves LineStep(20) at N = 100 and the two-variable graph at N = 50,000
-    on the card at the bars of phases 3 and 4; both libraries load from the
-    seeded files (2 hits, 0 misses, no compiler run) and the kernel
-    launches.  B: the same, from empty build directories and a pack that
-    holds only a kernel entry carrying another source's digest (file and
-    manifest renamed by hand): that entry is seeded and never looked up,
-    so both compilers run (0 hits, 2 misses).  Each process's walls run
+    on the card at the bars of phases 3 and 4; the three libraries the
+    solves need (the row-logsumexp and column-draw kernels, the ordering)
+    load from the seeded files (3 hits, 0 misses, no compiler run) and the
+    kernel launches.  B: the same, from empty build directories and a pack
+    that holds only a kernel entry carrying another source's digest (file
+    and manifest renamed by hand): that entry is seeded and never looked
+    up, so both compilers run (0 hits, 3 misses).  Each process's walls run
     from its launch to the end of each first solve; A's against B's is
     what the pack saves a fresh process."""
     from incrementalinference_torch import native, warmstart
+    from incrementalinference_torch.ops.kernels import pair_draw
 
     t_phase = time.time()
     here = os.path.dirname(os.path.abspath(it.__file__))
     pack = os.path.join(here, "aotcache", warmstart._PACKS["cuda"])
-    built = [K.LIBRARY.path(), native.LIBRARY.path()]
+    built = [K.LIBRARY.path(), pair_draw.LIBRARY.path(),
+             native.LIBRARY.path()]
     for path in built:
         check(os.path.exists(path), f"phase 1 left no {path}")
     warmstart.write_pack(pack, built)
@@ -643,19 +656,19 @@ def phase_warmstart(it, K):
         check(not any(map(os.path.exists, builds)),
               "the copied package holds a build directory")
         a = _warm_child(root)
-        check(a["report"] == {"copied": 2, "present": 0,
-                              "pack_entries": 2, "version_match": True},
+        check(a["report"] == {"copied": 3, "present": 0,
+                              "pack_entries": 3, "version_match": True},
               f"warm start: seed report {a['report']}")
-        check(a["counts"] == {"hits": 2, "misses": 0},
-              f"warm start: loads {a['counts']} (want 2 hits, no miss)")
-        check(a["build_seconds"] == [None, None],
+        check(a["counts"] == {"hits": 3, "misses": 0},
+              f"warm start: loads {a['counts']} (want 3 hits, no miss)")
+        check(a["build_seconds"] == [None, None, None],
               f"warm start: a compiler ran: {a['build_seconds']}")
 
         for d in builds:
             shutil.rmtree(d, ignore_errors=True)
         other = _mismatch_pack(
             os.path.join(pkg, "aotcache", warmstart._PACKS["cuda"]),
-            K.LIBRARY, native.LIBRARY, root)
+            K.LIBRARY, (pair_draw.LIBRARY, native.LIBRARY), root)
         b = _warm_child(root)
         name = os.path.basename(built[0])
         check(b["report"]["copied"] == 1 and other in b["kernel_dir"],
@@ -663,7 +676,7 @@ def phase_warmstart(it, K):
               f"{b['kernel_dir']}")
         check(os.path.basename(b["kernel_path"]) == name,
               f"the kernel loaded from {b['kernel_path']}, not {name}")
-        check(b["counts"] == {"hits": 0, "misses": 2}
+        check(b["counts"] == {"hits": 0, "misses": 3}
               and None not in b["build_seconds"],
               f"unseeded: loads {b['counts']}, compiler seconds "
               f"{b['build_seconds']} (want both compilers to run)")
@@ -675,9 +688,10 @@ def phase_warmstart(it, K):
             ("two-variable N=50000 built", "two_var_graph_s"),
             ("solved", "two_var_s"))]
         print(f"PASS warm start: two fresh processes, from launch (s), "
-              f"seeded (2 hits, 0 misses, no compiler) | unseeded (0 hits, "
-              f"2 misses: nvcc {b['build_seconds'][0]:.3f} s, g++ "
-              f"{b['build_seconds'][1]:.3f} s): "
+              f"seeded (3 hits, 0 misses, no compiler) | unseeded (0 hits, "
+              f"3 misses: nvcc {b['build_seconds'][0]:.3f} and "
+              f"{b['build_seconds'][1]:.3f} s, g++ "
+              f"{b['build_seconds'][2]:.3f} s): "
               + ", ".join(f"{w} {x:.3f} | {y:.3f}" for w, x, y in walls)
               + f"; launches {a['launches']} | {b['launches']}; the pack "
               f"saved {b['two_var_s'] - a['two_var_s']:.3f} s to the end "
@@ -844,18 +858,20 @@ def _tf32_gap(f, pinned, args):
 def phase_precision(it, K):
     """Full float32 precision on the port's own terms (config.full_precision
     pins each entry point's span): the two-variable graph at N = 4,096 (its
-    product stages condense) and at N = 50,000 (the column draw runs
-    _pair_logW) solved twice at the default setting and once with a
-    caller's torch.set_float32_matmul_precision("high") set before the
-    graph is built; each call of _pair_logW and condense_mixture asserts
-    that matmul precision reads "ieee" where it is called, the three
-    posteriors bit-equal, and the caller's setting back after the solve.
-    Then the size of the fault this closes, outside the pin: max |TF32 -
-    IEEE| of _pair_logW on the N = 50,000 solve's own inputs (products with
-    K = dof = 1) and of condense_mixture on the N = 4,096 solve's (one-hot
-    sums), and of _pair_logW at dof 2, 3, 6 and 8 on 4,096 x 4,096 inputs
-    (K = dof), where the pinned call under "high" must equal the IEEE
-    result bit for bit."""
+    product stages condense) and at N = 50,000 (its products run the
+    row-logsumexp and column-draw kernels, no matmul) solved twice at the
+    default setting and once with a caller's
+    torch.set_float32_matmul_precision("high") set before the graph is
+    built; each call of _pair_logW and condense_mixture asserts that matmul
+    precision reads "ieee" where it is called, the three posteriors
+    bit-equal, and the caller's setting back after the solve.  Then the
+    size of the fault this closes, outside the pin: max |TF32 - IEEE| of
+    _pair_logW on the first 2,048 rows of each large pair product of the
+    N = 50,000 solve (products with K = dof = 1; the eager column draw
+    took such blocks before the draw kernel) and of condense_mixture on
+    the N = 4,096 solve's (one-hot sums), and of _pair_logW at dof 2, 3, 6
+    and 8 on 4,096 x 4,096 inputs (K = dof), where the pinned call under
+    "high" must equal the IEEE result bit for bit."""
     from incrementalinference_torch.ops import product
 
     dev, small, large = "cuda", 4096, 50_000
@@ -863,12 +879,17 @@ def phase_precision(it, K):
     calls, condensed, seen = [], [], []
     keep = {"N": None}                 # whose inputs to keep: the first run's
     orig, orig_condense = product._pair_logW, product.condense_mixture
+    orig_large = product.pair_product_tangent_large
 
     def recorded(*a):
         seen.append(torch.backends.cuda.matmul.fp32_precision)
-        if keep["N"] == large:
-            calls.append(a)
         return orig(*a)
+
+    def recorded_large(muA, precA, muB, precB, key, n_out):
+        if keep["N"] == large:
+            calls.append((muA[..., :2048, :], precA[..., :2048, :], muB,
+                          precB))
+        return orig_large(muA, precA, muB, precB, key, n_out)
 
     def recorded_condense(*a, **k):
         seen.append(torch.backends.cuda.matmul.fp32_precision)
@@ -887,6 +908,7 @@ def phase_precision(it, K):
             keep["N"] = N if not posts else None
             product._pair_logW = recorded
             product.condense_mixture = recorded_condense
+            product.pair_product_tangent_large = recorded_large
             try:
                 _sync(dev)
                 t0 = time.time()
@@ -896,7 +918,8 @@ def phase_precision(it, K):
             finally:
                 product._pair_logW = orig
                 product.condense_mixture = orig_condense
-            check(seen and set(seen) == {"ieee"},
+                product.pair_product_tangent_large = orig_large
+            check((seen or N == large) and set(seen) <= {"ieee"},
                   f"N={N} {run}: matmul precision where the products run "
                   f"{sorted(set(seen))} ({len(seen)} calls), not 'ieee'")
             if run == "high":
@@ -919,7 +942,7 @@ def phase_precision(it, K):
               f"after the solve; walls {[round(w, 3) for w in walls]} s",
               flush=True)
 
-    check(calls, f"the N={large} solve never called _pair_logW")
+    check(calls, f"the N={large} solve took no large pair product")
     check(condensed, f"the N={small} solve never condensed")
     raw = product._pair_logW.__wrapped__       # outside the pin
     raw_condense = product.condense_mixture.__wrapped__
@@ -942,8 +965,8 @@ def phase_precision(it, K):
     finally:
         _restore_precision(default)
     print(f"PASS the fault closed: max |TF32 - IEEE| of _pair_logW over the "
-          f"{len(calls)} calls of the N={large} solve "
-          f"({tuple(calls[0][0].shape)}"
+          f"first rows of the {len(calls)} large pair products of the "
+          f"N={large} solve ({tuple(calls[0][0].shape)}"
           f" x {tuple(calls[0][2].shape)} each) = {gap:.6g}, against "
           f"max |logW| {scale:.6g}; of condense_mixture over the "
           f"{len(condensed)} calls of the N={small} solve, max relative "
@@ -1827,6 +1850,102 @@ def phase_kde_kernel(n=50_000, reps=20):
               f"{walls['plain'][0]:.1f} ms (CUDA events, medians of 3); "
               f"largest gap to float64: kernel {gaps['kernel']:.2e}, plain "
               f"{gaps['plain']:.2e}", flush=True)
+
+
+def _draw_inputs(dof, n, gen, dev):
+    """(muA, precA, muB, precB) of a 50k x 50k product on the card: at dof
+    1 the line2-n50k cell's (a sigma-1 prior's kernels at bandwidth 0.12
+    against a sigma-10 message's at 1.2), at dof 3 the se2pair-n50k cell's
+    x0 product (the sigma-0.01 prior's kernels at 0.0013 against the
+    message's spread 0.5, 0.5, 0.05 at bandwidths 0.12 of it)."""
+    if dof == 1:
+        sa, ba = torch.ones(1), torch.full((1,), 0.12)
+        sb, bb = torch.full((1,), 10.0), torch.full((1,), 1.2)
+    else:
+        sb = torch.tensor([0.5, 0.5, 0.05])
+        sa, ba, bb = torch.full((3,), 0.01), torch.full((3,), 0.0013), \
+            0.12 * sb
+    muA = (torch.randn(n, dof, generator=gen) * sa).to(dev)
+    muB = (torch.randn(n, dof, generator=gen) * sb).to(dev)
+    return (muA, (1.0 / ba ** 2).expand(n, dof).to(dev), muB,
+            (1.0 / bb ** 2).expand(n, dof).to(dev))
+
+
+def _eager_block_draw(muA_s, precA_s, muB, precB, key):
+    """The column draw of the large pair product before its kernel: the
+    pair log-weights of 2,048 selected rows at a time, Gumbel noise and an
+    argmax (``keys.categorical_rows``).  Timed here only, as a yardstick."""
+    from incrementalinference_torch import keys
+    from incrementalinference_torch.ops import product
+
+    n_out, blk = muA_s.shape[0], 2048
+    nblk = -(-n_out // blk)
+    ks = keys.split(key, nblk)
+    return torch.cat([keys.categorical_rows(ks[j], product._pair_logW(
+        muA_s[j * blk:(j + 1) * blk], precA_s[j * blk:(j + 1) * blk], muB,
+        precB)) for j in range(nblk)])
+
+
+def phase_draw_kernel(n=50_000, reps=10):
+    """The large pair product's column draw (ops/kernels/pair_draw.py) at n
+    drawn rows x n columns, dof 1 and dof 3 (_draw_inputs): CUDA-event
+    medians of three windows of the kernel's draw, of its plain version on
+    the card and of the eager block draw it replaced, beside the least time
+    (one exponential a pair on the lanes and SFUs, bench_port/lib/
+    peaks.json's rates); and the share of rows where the kernel and the
+    plain version part on the same uniforms.  Alone: ``python3 -c "import
+    chip_smoke as cs; cs.phase_draw_kernel()"``."""
+    from incrementalinference_torch.ops.kernels import pair_draw
+    from incrementalinference_torch.ops.kernels.row_lse import \
+        pair_row_terms
+
+    pair_draw.build(verbose=False)
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    least_ms = 1e3 * n * n / (132 * (128 + 16) * 1.98e9)
+    gen = torch.Generator().manual_seed(22)
+    for dof in (1, 3):
+        muA, precA, muB, precB = _draw_inputs(dof, n, gen, dev)
+        ia = torch.randint(0, n, (n,), generator=gen).to(dev)
+        muA_s, precA_s = muA[ia], precA[ia]
+        a2, iva, ivmuA = (t.contiguous() for t in pair_row_terms(
+            muA_s, precA_s, muB, precB))
+        u = torch.rand(n, 2, generator=gen).to(dev)
+        args = (a2, iva, ivmuA, muB.contiguous(), u)
+        walls = {}
+        for route, fn, k in (
+                ("kernel", lambda: pair_draw.pair_column_draw(*args), reps),
+                ("plain", lambda: pair_draw.pair_column_draw_plain(
+                    *args, max_elems=1 << 26), 1),
+                ("eager", lambda: _eager_block_draw(
+                    muA_s, precA_s, muB, precB, 7), 2)):
+            out = fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(k):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                ts.append(e0.elapsed_time(e1) / k)
+            walls[route] = (statistics.median(ts), out)
+        got, want = walls["kernel"][1], walls["plain"][1]
+        parted = float((got != want).double().mean())
+        check(torch.equal(got, pair_draw.pair_column_draw(*args)),
+              f"draw kernel dof {dof}: two launches differ")
+        check(parted <= 1e-4, f"draw kernel dof {dof}: {parted:.2e} of the "
+              f"rows part from the plain version")
+        print(f"PASS draw kernel dof {dof} {n} x {n}: kernel "
+              f"{walls['kernel'][0]:.3f} ms, plain "
+              f"{walls['plain'][0]:.1f} ms, eager block draw "
+              f"{walls['eager'][0]:.1f} ms (CUDA events, medians of 3), "
+              f"least {least_ms:.3f} ms ({100 * least_ms / walls['kernel'][0]:.2f} "
+              f"% of it); rows parted from the plain version {parted:.2e}",
+              flush=True)
+    print(f"# phase_draw_kernel: {time.time() - t_phase:.1f} s", flush=True)
 
 
 def phase_joint(it):
@@ -3386,6 +3505,15 @@ def main() -> int:
         f"{native.build_seconds:.3f}"
     print(f"PASS native ordering built (g++ {gxx_s} s, "
           f"{os.path.basename(native.LIBRARY.path())})", flush=True)
+    from incrementalinference_torch.ops.kernels import pair_draw
+
+    t0 = time.time()
+    pair_draw.build(verbose=True)
+    draw_s = "cached" if pair_draw.build_seconds is None else \
+        f"{pair_draw.build_seconds:.3f}"
+    print(f"PASS build of the column draw: {time.time() - t0:.2f} s (nvcc "
+          f"{draw_s} s, {os.path.basename(pair_draw.LIBRARY.path())})",
+          flush=True)
     phase_sass(K)
 
     phase_compare(K, dev)
@@ -3410,6 +3538,7 @@ def main() -> int:
         solved.append((M, name, N, fg, truth))
     phase_ppe(it, solved)
     phase_kde_kernel()
+    phase_draw_kernel()
     del solved, fg
     phase_joint(it)
     t_new = time.time()

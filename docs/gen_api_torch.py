@@ -59,6 +59,8 @@ MODULES = [
     ("Warm start of the compiled libraries (`warmstart`)", f"{P}.warmstart"),
     ("The row-logsumexp kernel (`ops.kernels.row_lse`)",
      f"{P}.ops.kernels.row_lse"),
+    ("The large pair product's column draw (`ops.kernels.pair_draw`)",
+     f"{P}.ops.kernels.pair_draw"),
     ("The KDE read's kernel (`ops.kernels.kde_lse`)",
      f"{P}.ops.kernels.kde_lse"),
     ("Spans and counters (`tracing`)", f"{P}.tracing"),
@@ -91,9 +93,21 @@ DEPARTURES = [
     "**Unread estimates.** `LazyPPE` reads its estimate for `!=` as for "
     "`==`; the JAX class reads it only for `==`, so there an unread "
     "estimate is neither `== {}` nor `!= {}` (`beliefs.LazyPPE`).",
-    "**Warm start.** The pack holds the three compiled libraries (the "
-    "row-logsumexp kernel, the KDE read's kernel and the native ordering), "
-    "named by content, not XLA programs (`warmstart`, `libcache`).",
+    "**Warm start.** The pack holds the four compiled libraries (the "
+    "row-logsumexp kernel, the column draw's kernel, the KDE read's kernel "
+    "and the native ordering), named by content, not XLA programs "
+    "(`warmstart`, `libcache`).",
+    "**The large pair product's column draw.** Where the JAX package draws "
+    "each drawn row's column with `jax.random.categorical` (Gumbel noise "
+    "and an argmax), `pair_product_tangent_large` draws it by inverse CDF "
+    "on two uniforms a row from the member's key, through one hand-written "
+    "CUDA kernel on the card and its plain version on the CPU "
+    "(`ops.kernels.pair_draw`): the split of 2,048 columns by the first, "
+    "the column inside it by the second, each against a running sum of "
+    "fixed order. The law is the same, the random stream another; a "
+    "member's columns do not depend on the batch, and the kernel and the "
+    "plain version on the same uniforms pick the same columns except "
+    "where a float32 rounding moves a running sum across its target.",
     "**The KDE read on the card.** `kde_logpdf` (and through it `ppe`, "
     "`ppe_batched`, `LazyPPE`, `set_ppe` and "
     "`ManifoldKernelDensity.logpdf`) reads `Euclidean(d)`, d up to 8, and "
@@ -149,11 +163,12 @@ RECORDED = [
     "`kde_eager_pairs` where the chunked eager route did (members × Q × "
     "N).",
     "**Product** (`ops.product`, `ops.fused`): `product`; inside it one "
-    "`product.draw` a pair product's call, around its draws (the rows, "
-    "the drawn rows' weights, the Gumbel argmax) on every route "
-    "(attributes `route`, `members`, `rows`, `na`, `nb`, `dof`), with "
-    "stream marks on the card (`device_us`); counter `draw_pairs` "
-    "(members × rows × Nb, the pairs the column draws weigh).",
+    "`product.draw` a pair product's call, around its draws (the rows and "
+    "the columns) on every route (attributes `route`, `members`, `rows`, "
+    "`na`, `nb`, `dof`), with stream marks on the card (`device_us`); "
+    "counter `draw_pairs` (members × rows × Nb, the pairs the column draws "
+    "weigh), and `draw_kernel_pairs` (the same count) where the column "
+    "draw's kernel drew them.",
 ]
 
 

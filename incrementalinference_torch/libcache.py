@@ -1,7 +1,8 @@
 """Content-addressed builds of the port's compiled libraries.
 
-The port compiles three libraries at first use: the row-logsumexp kernel
-(``ops/kernels/csrc/row_lse.cu``, with nvcc), the KDE read's kernel
+The port compiles four libraries at first use: the row-logsumexp kernel
+(``ops/kernels/csrc/row_lse.cu``, with nvcc), the column draw's kernel
+(``ops/kernels/csrc/pair_draw.cu``, with nvcc), the KDE read's kernel
 (``ops/kernels/csrc/kde_lse.cu``, with nvcc) and the native elimination
 ordering (``native/ordering.cpp``, with g++).  A library's file name carries
 what it was built from: a digest of the source file's bytes and the

@@ -10,21 +10,23 @@ Component pairs are drawn exactly from those weights (row by its
 log-partition, then column given row), combined analytically, and the
 D-density product cascades D−1 such pair products.  Above
 ``LARGE_PAIR_THRESHOLD`` pairs the row log-partitions come from the
-streaming CUDA kernel (ops/kernels/row_lse.py) and the (Na, Nb) matrix is
-never built.  Index selections are plain indexing: the JAX package's
+streaming CUDA kernel (ops/kernels/row_lse.py), the columns from the
+inverse-CDF draw kernel (ops/kernels/pair_draw.py), and the (Na, Nb) matrix
+is never built.  Index selections are plain indexing: the JAX package's
 one-hot matmuls were a TPU workaround and select the same values.
 
 The pair products and the cascade take a leading member axis (B
 independent problems of one shape, a sequence of B keys): each member
 draws from its own key, as it would alone, and on the large-pair path the
-row log-partitions of all members are one kernel launch.
+row log-partitions of all members are one kernel launch, and their column
+draws another.
 
-Each route's draws (the rows, the columns' weights and the Gumbel argmax,
-every member) run inside one span ``product.draw`` a call, nested in
-``product``, with stream marks on the card (``tracing.span``), and count
-``draw_pairs`` (members × n_out × Nb: the (row, column) pairs the column
-draws weigh).  A route added later counts
-the same work the same way.
+Each route's draws (the rows and the columns, every member) run inside one
+span ``product.draw`` a call, nested in ``product``, with stream marks on
+the card (``tracing.span``), and count ``draw_pairs`` (members × n_out ×
+Nb: the (row, column) pairs the column draws weigh); the columns the draw
+kernel drew count ``draw_kernel_pairs`` the same way.  A route added later
+counts the same work the same way.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from .. import keys as _keys
 from .. import tracing
 from ..config import full_precision
 from ..manifolds import Manifold
-from .kernels.row_lse import pair_row_logsumexp
+from .kernels.pair_draw import pair_column_draw
+from .kernels.row_lse import pair_row_logsumexp, pair_row_terms
 
 __all__ = ["manifold_product", "Proposal", "pair_product_tangent",
            "pair_product_tangent_weighted", "pair_product_tangent_large",
@@ -53,9 +56,6 @@ LARGE_PAIR_THRESHOLD = 1 << 30
 CONDENSE_MIN_NB = 768
 CONDENSE_K = 256
 _CONDENSE_ITERS = 6
-#: rows per block of the large path's column draw: peak memory is
-#: O(BLOCK · Nb) instead of O(n_out · Nb)
-_LARGE_SEL_BLOCK = 2048
 
 
 class Proposal:
@@ -250,39 +250,33 @@ def _logits_vs(mu_rows, prec_rows, muB, precB, logwB):
 
 def pair_product_tangent_large(muA, precA, muB, precB, key, n_out: int):
     """Large-N exact pair product that never builds the (Na, Nb) matrix:
-    row log-partitions stream through the CUDA kernel (its plain version
-    on the CPU), then the selected rows' weights are rebuilt in blocks of
-    ``_LARGE_SEL_BLOCK`` rows for the column draw.
+    row log-partitions stream through the row-logsumexp kernel, the rows
+    are drawn against them, and each drawn row's column by inverse CDF
+    through the column-draw kernel (``ops/kernels/pair_draw.py``; their
+    plain versions on the CPU) on two uniforms a row from the member's key.
 
     With a sequence of keys the inputs carry a leading member axis: the
     row log-partitions of every member are ONE kernel launch (the JAX
-    package's vmapped Pallas call), and the column draw stays blockwise
-    and per member, so peak memory does not grow with the batch."""
+    package's vmapped Pallas call), and so are the column draws."""
     row_ls = pair_row_logsumexp(muA, precA, muB, precB)  # ([B,] Na)
     keys, (muA, precA, muB, precB, row_ls), batched = _members(
         key, muA, precA, muB, precB, row_ls)
-    blk = min(_LARGE_SEL_BLOCK, n_out)
-    nblk = -(-n_out // blk)
-    outs = []
     with tracing.span("product.draw", muA.device, marks=True) as sp:
         _count_draw(sp, "large", muA, muB, len(keys), n_out)
+        ia, u = [], []
         for b, k in enumerate(keys):
             k_row, k_col = _keys.split(k, 2)
-            ia = _keys.categorical(k_row, row_ls[b], n_out)
-            keys_b = _keys.split(k_col, nblk)
-            mus, precs = [], []
-            for j in range(nblk):
-                ia_blk = ia[j * blk:(j + 1) * blk]
-                muA_s, precA_s = muA[b][ia_blk], precA[b][ia_blk]
-                logW_rows = _pair_logW(muA_s, precA_s, muB[b], precB[b])
-                ib = _keys.categorical_rows(keys_b[j], logW_rows)
-                del logW_rows
-                mu, prec = _combine(precA_s, muA_s, precB[b][ib],
-                                    muB[b][ib])
-                mus.append(mu)
-                precs.append(prec)
-            outs.append((torch.cat(mus), torch.cat(precs)))
-    return _out(outs, batched)
+            ia.append(_keys.categorical(k_row, row_ls[b], n_out))
+            u.append(torch.rand((n_out, 2), generator=_keys.generator(
+                k_col, muA.device), device=muA.device, dtype=muA.dtype))
+        ia, u = torch.stack(ia), torch.stack(u)
+        muA_s, precA_s = _take(muA, ia), _take(precA, ia)
+        a2, ivar, ivmuA = pair_row_terms(muA_s, precA_s, muB, precB)
+        ib = pair_column_draw(a2.contiguous(), ivar.contiguous(),
+                              ivmuA.contiguous(), muB.contiguous(), u)
+        mu, prec = _combine(precA_s, muA_s, _take(precB, ib),
+                            _take(muB, ib))
+    return (mu, prec) if batched else (mu[0], prec[0])
 
 
 def _pair_stage(mu, prec, mu_b, prec_b, key_pair, key_condense, n_out: int):

@@ -4,7 +4,8 @@ Counterpart of ``incrementalinference/jl_tpu/warmstart.py``.  The JAX
 package's cold start is XLA compiling its solver programs, and its pack
 ships them compiled.  The port runs eagerly and compiles no program for
 each structure: its cold start is the compiler runs at first use, nvcc of
-the row-logsumexp kernel (``ops/kernels/row_lse.py``) and of the KDE read's
+the row-logsumexp kernel (``ops/kernels/row_lse.py``), of the large pair
+product's column draw (``ops/kernels/pair_draw.py``) and of the KDE read's
 kernel (``ops/kernels/kde_lse.py``, at the first estimate read on the card)
 and g++ of the native ordering (``native/``).  A pack
 (``aotcache/cuda-sm90a/`` beside this file, listed in ``.gitignore``: the
@@ -69,9 +70,11 @@ def _libraries() -> tuple:
     compiler."""
     from .native import LIBRARY as ordering
     from .ops.kernels.kde_lse import LIBRARY as kde
+    from .ops.kernels.pair_draw import LIBRARY as draw
     from .ops.kernels.row_lse import LIBRARY as kernel
 
-    return (("nvcc", kernel), ("nvcc", kde), ("g++", ordering))
+    return (("nvcc", kernel), ("nvcc", draw), ("nvcc", kde),
+            ("g++", ordering))
 
 
 def _library_of(entry: str):

@@ -8,9 +8,10 @@ in B, so the merged component keeps A's value there, the row's index;
 dimension 2 is free in A and keeps B's, the column's.  The pair weights
 depend on dimension 0 alone.
 
-The one test marked ``card`` needs an NVIDIA card and skips here; on the
-card: ``python -m pytest --noconftest tests/test_torch_product_draw.py -m
-card``."""
+The tests marked ``card`` need an NVIDIA card and skip here; on the card
+(the large route there draws its columns by the kernel of
+``ops/kernels/pair_draw.py``): ``python -m pytest --noconftest
+tests/test_torch_product_draw.py -m card``."""
 
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ CALLS = 16
 ROUTES = ("materialised", "condensed", "large")
 
 
-def _inputs(route, members=1):
+def _inputs(route, members=1, device="cpu"):
     """(muA, precA, muB, precB, logwB) with a leading member axis; B's
     precision row is shared by its components (a kernel density's
     bandwidth, and the condensed route's clusters here), so the plain
@@ -47,12 +48,13 @@ def _inputs(route, members=1):
     precB = torch.tensor([4.0, 0.0, 1.0]).expand(members, NB, 3).clone()
     logwB = (0.7 * torch.randn(members, NB, generator=g)
              if route == "condensed" else None)
-    return muA, precA, muB, precB, logwB
+    return tuple(None if t is None else t.to(device)
+                 for t in (muA, precA, muB, precB, logwB))
 
 
-def _draw(route, key, members=1):
+def _draw(route, key, members=1, device="cpu"):
     """(mu, prec) of one call of the route, every member keyed."""
-    muA, precA, muB, precB, logwB = _inputs(route, members)
+    muA, precA, muB, precB, logwB = _inputs(route, members, device)
     ks = [_keys.make_key(key, m) for m in range(members)]
     if route == "materialised":
         return product.pair_product_tangent(muA, precA, muB, precB, ks,
@@ -64,7 +66,7 @@ def _draw(route, key, members=1):
                                               N_OUT)
 
 
-def _tv_and_bar(route):
+def _tv_and_bar(route, device="cpu"):
     """The total-variation distance between the drawn pairs' frequencies
     and the plain law, and its bar: 1.5 times the sum over the pairs of
     half a multinomial count's standard deviation (the distance's mean is
@@ -74,7 +76,8 @@ def _tv_and_bar(route):
                        None if logwB is None else logwB[0]).reshape(-1)
     counts = torch.zeros(NA * NB, dtype=torch.float64)
     for c in range(CALLS):
-        mu, _ = _draw(route, 1000 + c)
+        mu, _ = _draw(route, 1000 + c, device=device)
+        mu = mu.cpu()
         i = torch.round(mu[0, :, 1]).long()
         j = torch.round(mu[0, :, 2]).long()
         counts += torch.bincount(i * NB + j, minlength=NA * NB).double()
@@ -104,14 +107,23 @@ def test_negated_row_partitions_fail_the_bar(route, monkeypatch):
 @pytest.mark.parametrize("route", ROUTES)
 def test_uniform_columns_fail_the_bar(route, monkeypatch):
     """The planted column fault: the rows drawn right, each row's column
-    drawn uniformly, its weights ignored (the column draw is each route's
-    call of ``keys.categorical_rows``).  A sound draw reads about half the
-    bar; this one 2.6 times it on the materialised and large routes (the
-    right row already narrows the columns a pair can take) and more on the
+    drawn uniformly, its weights ignored (the column draw is the
+    materialised and condensed routes' call of ``keys.categorical_rows``,
+    and the large route's ``pair_column_draw``, whose weights are zeroed by
+    zeroing the row terms).  A sound draw reads about half the bar; this
+    one 2.6 times it on the materialised and large routes (the right row
+    already narrows the columns a pair can take) and more on the
     condensed."""
-    real = _keys.categorical_rows
-    monkeypatch.setattr(product._keys, "categorical_rows",
-                        lambda key, logits: real(key, 0.0 * logits))
+    if route == "large":
+        real = product.pair_column_draw
+        monkeypatch.setattr(
+            product, "pair_column_draw",
+            lambda a2, iva, ivmuA, muB, u: real(0.0 * a2, 0.0 * iva,
+                                                0.0 * ivmuA, muB, u))
+    else:
+        real = _keys.categorical_rows
+        monkeypatch.setattr(product._keys, "categorical_rows",
+                            lambda key, logits: real(key, 0.0 * logits))
     tv, bar = _tv_and_bar(route)
     assert tv > 2 * bar, (route, tv, bar)
 
@@ -213,3 +225,15 @@ def test_stream_marks_hold_the_operations_the_span_launched(card):
     assert abs(inside[0][0] - lo) < 200.0
     # by their device start they lie after the host span had ended
     assert inside[0][0] - offset > span["end_ns"] / 1e3
+
+
+@pytest.mark.card
+def test_the_large_route_follows_the_plain_product_on_the_card(card):
+    """The pair-frequency bar of the CPU routes, with the rows drawn on the
+    card and the columns by the draw kernel."""
+    from incrementalinference_torch.ops.kernels import pair_draw
+
+    pair_draw.reset_counts()
+    tv, bar = _tv_and_bar("large", device=card)
+    assert pair_draw.counts["launches"] == CALLS
+    assert tv < bar, (tv, bar)
