@@ -93,11 +93,12 @@ Phases (any failure exits non-zero before the result line; none is caught):
    average of the particles of highest KDE density, mean within 0.2 of
    truth; the chunked eager kde_logpdf and _ppe_core against the
    one-pass form at SE(2) N = 8,192 (log-density within 1e-6, mean
-   bit-equal, the same particles chosen), and SE(2)'s KDE kernel
-   (ops/kernels/kde_lse.py) against the one-pass form in float64 (2e-5;
-   the chosen particle within 1e-5 of the best); that kernel at 50k x 50k
-   on SE(2) and Euclidean(1), timed by CUDA events beside its eager chunks
-   and held to the float64 read (phase_kde_kernel, 2e-5); the large pair
+   bit-equal, the same particles chosen), and the KDE kernel
+   (ops/kernels/kde_lse.py) on SE(2) and SE(3) against the one-pass form in
+   float64 (2e-5; the chosen particle within 1e-5 of the best); that kernel
+   at 50k x 50k on SE(2) and Euclidean(1) and at 33k x 33k on SE(3), timed
+   by CUDA events beside its eager chunks and held to the float64 read
+   (phase_kde_kernel, 2e-5); the large pair
    product's column-draw kernel (ops/kernels/pair_draw.py) at 50k x 50k,
    dof 1 and 3, timed beside its plain version and the eager block draw it
    replaced, the rows where kernel and plain version part on the same
@@ -1701,7 +1702,7 @@ def phase_ppe(it, solved):
     x1 (LOO bandwidth), SE(2) at 8,192 (2,048 rows a chunk, 4
     chunks) and SE(3) at 5,000 (2 chunks; the one pass ~5 GB): each row's
     log-density within 1e-6, ``mean`` bit-equal, the same chosen
-    particles.  Where ``kde_logpdf`` reads by the kernel (SE(2)), the
+    particles.  Where ``kde_logpdf`` reads by the kernel (SE(2), SE(3)), the
     chunks are its eager route called directly, and the kernel is held
     to the one-pass form in float64: each row within 2e-5, its chosen
     particle's float64 log-density within 1e-5 of the best."""
@@ -1796,9 +1797,10 @@ def phase_ppe(it, solved):
     print(f"PASS phase_ppe: {dt:.1f} s (budget 60 s)", flush=True)
 
 
-def phase_kde_kernel(n=50_000, reps=20):
+def phase_kde_kernel(n=50_000, reps=20, n_se3=33_000):
     """The KDE read's kernel (ops/kernels/kde_lse.py) at n x n on SE(2)
-    (the se2pair cell's x1 spread) and Euclidean(1) (two modes): CUDA-event
+    (the se2pair cell's x1 spread) and Euclidean(1) (two modes), and at
+    n_se3 x n_se3 on SE(3) (the se3pair cell's x1 spread): CUDA-event
     times of ``kde_logpdf`` at the particles themselves (kernel) and of its
     eager chunks on the same inputs (plain), medians of three windows, and
     each route's largest gap to the plain route in float64.  Alone:
@@ -1810,12 +1812,19 @@ def phase_kde_kernel(n=50_000, reps=20):
     kde_lse.build(verbose=False)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
-    for name, M in (("SE(2)", it.SE2()), ("Euclidean(1)", it.Euclidean(1))):
+    for name, M in (("SE(2)", it.SE2()), ("Euclidean(1)", it.Euclidean(1)),
+                    ("SE(3)", it.SE3())):
         if name == "SE(2)":
             X = torch.randn(n, 3, generator=gen, dtype=torch.float64) \
                 * torch.tensor([0.5, 0.5, 0.05], dtype=torch.float64)
             pts = M.exp(torch.tensor([[10.0, 0.0, math.pi / 2]],
                                      dtype=torch.float64), X)
+        elif name == "SE(3)":
+            X = torch.randn(n_se3, 6, generator=gen, dtype=torch.float64) \
+                * torch.tensor([0.5] * 3 + [0.05] * 3, dtype=torch.float64)
+            pts = M.exp(M.Exp(torch.tensor(
+                [10.0, 0.0, 0.0, 0.0, 0.0, math.pi / 2],
+                dtype=torch.float64))[None], X)
         else:
             pts = torch.randn(n, 1, generator=gen, dtype=torch.float64)
             pts[: n // 3] += 6.0
@@ -1845,7 +1854,8 @@ def phase_kde_kernel(n=50_000, reps=20):
                 for r, (_, o) in walls.items()}
         check(gaps["kernel"] <= 2e-5, f"KDE kernel {name}: {gaps['kernel']} "
               "from the plain route in float64")
-        print(f"PASS KDE kernel {name} {n} x {n}: kernel "
+        m = pts.shape[0]
+        print(f"PASS KDE kernel {name} {m} x {m}: kernel "
               f"{walls['kernel'][0]:.3f} ms, plain "
               f"{walls['plain'][0]:.1f} ms (CUDA events, medians of 3); "
               f"largest gap to float64: kernel {gaps['kernel']:.2e}, plain "

@@ -110,18 +110,26 @@ DEPARTURES = [
     "where a float32 rounding moves a running sum across its target.",
     "**The KDE read on the card.** `kde_logpdf` (and through it `ppe`, "
     "`ppe_batched`, `LazyPPE`, `set_ppe` and "
-    "`ManifoldKernelDensity.logpdf`) reads `Euclidean(d)`, d up to 8, and "
-    "`SE2` by one hand-written CUDA kernel where the particles, queries "
-    "and bandwidths are float32 CUDA tensors and no gradient is asked of "
-    "them (`ops.kernels.kde_lse`); SE(3), SO(3), the circle, the sphere, "
-    "products, other dtypes and the CPU keep the chunked eager route. On "
+    "`ManifoldKernelDensity.logpdf`) reads `Euclidean(d)`, d up to 8, "
+    "`SE2` and `SE3` by one hand-written CUDA kernel where the particles, "
+    "queries and bandwidths are float32 CUDA tensors and no gradient is "
+    "asked of them (`ops.kernels.kde_lse`); SO(3), the circle, the sphere, "
+    "products, subclasses, other dtypes and the CPU keep the chunked eager "
+    "route. On "
     "the kernel's route a row's value does not depend on the rest of the "
     "query: the column split depends on N alone and the splits merge in a "
     "fixed order, so a row read alone gives the bits it has in a read of "
     "every particle. Both routes agree to float32 rounding (2e-5 in "
     "log-density against the float64 read), not bit for bit, and the "
     "SE(2) kernel rotates the difference of the translations where the "
-    "eager `compose(inverse(p), q)` subtracts two rotated points.",
+    "eager `compose(inverse(p), q)` subtracts two rotated points. The "
+    "SE(3) kernel follows `SE3.log` with its small-angle forms and clamps, "
+    "but takes V^-1's coefficient from the relative quaternion's half "
+    "angle, so in float32 it keeps what the eager `SE3.log` loses at small "
+    "relative angles (on the two-pose SE(3) graph's beliefs the eager "
+    "float32 read lies up to 2e-3 from the float64 read, the kernel 1e-6); "
+    "`kde_lse.se3_log` and `kde_lse.se3_row_logsumexp` are its plain "
+    "version.",
     "**The convolution's CUDA graphs.** Where the JAX package jits the LM "
     "solve, the port (`ops.convolve.batched_gauss_newton`) solves eagerly "
     "at a signature's first call on the card, captures the whole solve as "
@@ -159,7 +167,8 @@ RECORDED = [
     "`conv_graph_replays`, `conv_graph_captures`, `conv_eager_solves` a "
     "`batched_gauss_newton` call.",
     "**Bandwidth and estimates**: `bandwidth`, `kde_logpdf` (attributes "
-    "`N`, `Q`); counter `kde_pairs` where the kernel read and "
+    "`N`, `Q` and `manifold`, the manifold's class name); counter "
+    "`kde_pairs` where the kernel read and "
     "`kde_eager_pairs` where the chunked eager route did (members × Q × "
     "N).",
     "**Product** (`ops.product`, `ops.fused`): `product`; inside it one "

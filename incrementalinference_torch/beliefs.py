@@ -129,7 +129,8 @@ def make_belief(manifold: Manifold, points: torch.Tensor,
 
 
 @tracing.spanned("kde_logpdf", lambda manifold, belief, query: {
-    "N": belief.points.shape[-2], "Q": query.shape[-2]})
+    "N": belief.points.shape[-2], "Q": query.shape[-2],
+    "manifold": type(manifold).__name__})
 def kde_logpdf(manifold: Manifold, belief: Belief,
                query: torch.Tensor) -> torch.Tensor:
     """log p(query) under the Gaussian-kernel KDE.  query: (Q, point_dim);
@@ -138,10 +139,14 @@ def kde_logpdf(manifold: Manifold, belief: Belief,
     (..., dof) beside them.
 
     Two routes, chosen by what the call shows: on ``Euclidean(d)`` (d up
-    to ``kde_lse.MAX_DOF``) and ``SE2``, with float32 CUDA tensors and no
-    gradient asked, one hand-written kernel reads every (query, kernel)
-    pair in registers (``ops/kernels/kde_lse.py``; counter ``kde_pairs``),
-    and a row's value there does not depend on the rest of the query.
+    to ``kde_lse.MAX_DOF``), ``SE2`` and ``SE3``, with float32 CUDA
+    tensors and no gradient asked, one hand-written kernel reads every
+    (query, kernel) pair in registers (``ops/kernels/kde_lse.py``; counter
+    ``kde_pairs``), and a row's value there does not depend on the rest of
+    the query.  On ``SE3`` the kernel follows ``SE3.log`` with its
+    small-angle forms and clamps, V^-1 taken from the relative
+    quaternion's half angle, which keeps in float32 what the eager
+    ``SE3.log`` loses there at small relative angles.
     Everywhere else, the CPU included, the query rows go through in chunks
     of at most ``_KDE_CHUNK_PAIRS`` (query, kernel) pairs, each row by the
     same expressions as a whole pass, so the read holds one chunk's
@@ -150,7 +155,8 @@ def kde_logpdf(manifold: Manifold, belief: Belief,
     go through in groups, each group in row chunks of its own; only a
     single belief of more than ``_KDE_CHUNK_PAIRS`` particles goes past
     the chunk (one row at a time).  Both routes subtract the same
-    normaliser."""
+    normaliser.  The call's span carries ``N``, ``Q`` and ``manifold``,
+    the manifold's class name."""
     points, bw = belief.points, belief.bw
     n = points.shape[-2]
     lead = torch.broadcast_shapes(points.shape[:-2], query.shape[:-2],

@@ -12,7 +12,7 @@
 //
 // over the kernel particles p_bj, j < N, without building any (Q, N, dof)
 // tensor; the caller subtracts log N and the bandwidth normaliser.
-// Manifolds: Euclidean(D), D = 1..8 (log_p(q) = q - p), and SE(2), points
+// Manifolds: Euclidean(D), D = 1..8 (log_p(q) = q - p); SE(2), points
 // (x, y, theta), where log_p(q) = Log(p^-1 q) as manifolds/lie.py SE2.log
 // computes it:
 //
@@ -32,6 +32,29 @@
 // would lose the digits of A at small phi; cos(w) and sin(w) are IEEE
 // sincosf, once a particle.
 //
+// SE(3), points (t[3], quaternion w, x, y, z), where log_p(q) =
+// Log(p^-1 q) as manifolds/lie.py SE3.log computes it, its small-angle
+// branches and its clamps included:
+//
+//   a   = conj(quat_p)                   (the inverse's rotation, a term)
+//   r   = a quat_q, negated where r_w < 0 (the relative rotation, r_w >= 0)
+//   d   = a (t_q - t_p) a*               (the difference form of inverse
+//                                         and compose)
+//   u   = sqrt(|r_xyz|^2 + 1e-24),  theta = 2 atan2(u, r_w)
+//   phi = r_xyz theta / u                (r_xyz 2 / max(r_w, 1e-8) where
+//                                         u <= 1e-8)
+//   s   = sqrt(|phi|^2 + 1e-24)
+//   c   = (1 - s sin(s) / (2 max(1 - cos(s), 1e-8))) / s^2  (1/12 + s^2/720
+//                                                            where s <= 1e-8)
+//   rho = d - phi x d / 2 + c phi x (phi x d),  tangent (rho, phi)
+//
+// For the unit r, sin(theta) = 2 r_w u and 1 - cos(theta) = 2 u^2, so c is
+// taken as (m - s r_w u) / (m s^2), m = max(2 u^2, 1e-8): no cosine of a
+// small angle, whose 1 - cos(s) float32 loses whole below s ~ 3e-4 (and with
+// it the eager float32 route's V^-1 there).  r is not renormalised: theta,
+// phi and c's unclamped form do not depend on its norm, and the points are
+// unit to float32.  The reciprocals are rcp.approx (1 ulp).
+//
 // What bounds it on an H100 SXM.  It reads O((N + Q) * point_dim) floats and
 // does one exponential a pair: the least time is pairs / (lane rate + SFU
 // rate), 0.066 ms for 50,000 x 50,000 (bench_port/lib/peaks.json, the bound
@@ -39,11 +62,14 @@
 // Euclidean pair takes 3 FP32 operations a dimension, an SE(2) pair about 50
 // (the two polynomials, the rotation, the wrap, one reciprocal on the SFU),
 // so the FP32 issue rate is the practical limit, about 3.7 ms an SE(2)
-// 50k x 50k read.
+// 50k x 50k read.  An SE(3) pair takes about 130 (the quaternion product and
+// rotation, two square roots, an arctangent, three reciprocals, V^-1), so
+// FP32 issue bounds it harder still (bench_port's kde_se3_roofline_pct).
 //
 // What the design does about it.
 //   - The per-particle terms (for SE(2) the translation, theta and the
-//     cosine and sine of wrap(-theta) that the inverse needs) are worked out
+//     cosine and sine of wrap(-theta) that the inverse needs; for SE(3) the
+//     translation and the inverse's quaternion) are worked out
 //     once a particle by kde_lse_prep into a [term][N] array, then streamed
 //     through shared memory by cp.async into a two-stage ring, as row_lse.cu
 //     streams muB.  A warp holds kRows query rows in registers, a lane reads
@@ -213,6 +239,92 @@ struct SE2 {
     acc = fmaf(-zx, zx, acc);
     acc = fmaf(-zy, zy, acc);
     return fmaf(-zt, zt, acc);
+  }
+};
+
+// SE(3): terms (t_x, t_y, t_z, w, -x, -y, -z) of a particle, its translation
+// and the rotation of its inverse; a row's (t, quaternion) as stored.  Four
+// rows a warp: eight would hold 56 row terms and spill past the 128
+// registers that two blocks an SM leave a thread.
+struct SE3 {
+  static constexpr int kPointDim = 7;
+  static constexpr int kDof = 6;
+  static constexpr int kTerms = 7;
+  static constexpr int kRowTerms = 7;
+  static constexpr int kRows = 4;
+  static constexpr int kLaneCols = 4;
+
+  __device__ static void prep(const float* p, float* t) {
+    t[0] = p[0];
+    t[1] = p[1];
+    t[2] = p[2];
+    t[3] = p[3];
+    t[4] = -p[4];
+    t[5] = -p[5];
+    t[6] = -p[6];
+  }
+  __device__ static void row(const float* q, float* r) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) r[k] = q[k];
+  }
+  // a x b, written out
+  __device__ static void cross(float ax, float ay, float az, float bx,
+                               float by, float bz, float& cx, float& cy,
+                               float& cz) {
+    cx = fmaf(ay, bz, -__fmul_rn(az, by));
+    cy = fmaf(az, bx, -__fmul_rn(ax, bz));
+    cz = fmaf(ax, by, -__fmul_rn(ay, bx));
+  }
+  __device__ static float pair(const float (&r)[7], const float (&t)[7],
+                               const float (&w)[6], float acc) {
+    const float dx = __fsub_rn(r[0], t[0]), dy = __fsub_rn(r[1], t[1]),
+                dz = __fsub_rn(r[2], t[2]);
+    const float aw = t[3], ax = t[4], ay = t[5], az = t[6];
+    const float bw = r[3], bx = r[4], by = r[5], bz = r[6];
+    // r = a b, then the sign that makes r_w >= 0
+    float qw = fmaf(aw, bw, -fmaf(ax, bx, fmaf(ay, by, __fmul_rn(az, bz))));
+    float qx = fmaf(aw, bx, fmaf(ax, bw, fmaf(ay, bz, -__fmul_rn(az, by))));
+    float qy = fmaf(aw, by, fmaf(-ax, bz, fmaf(ay, bw, __fmul_rn(az, bx))));
+    float qz = fmaf(aw, bz, fmaf(ax, by, fmaf(-ay, bx, __fmul_rn(az, bw))));
+    const float sg = qw < 0.f ? -1.f : 1.f;
+    qw = __fmul_rn(sg, qw);
+    qx = __fmul_rn(sg, qx);
+    qy = __fmul_rn(sg, qy);
+    qz = __fmul_rn(sg, qz);
+    // d rotated by a: d + 2 (a_w (v x d) + v x (v x d)), v = a_xyz
+    float c1x, c1y, c1z, c2x, c2y, c2z;
+    cross(ax, ay, az, dx, dy, dz, c1x, c1y, c1z);
+    cross(ax, ay, az, c1x, c1y, c1z, c2x, c2y, c2z);
+    const float tx = fmaf(2.f, fmaf(aw, c1x, c2x), dx);
+    const float ty = fmaf(2.f, fmaf(aw, c1y, c2y), dy);
+    const float tz = fmaf(2.f, fmaf(aw, c1z, c2z), dz);
+    // the rotation vector
+    const float u2 = fmaf(qx, qx, fmaf(qy, qy, fmaf(qz, qz, 1e-24f)));
+    const float u = __fsqrt_rn(u2);
+    const float theta = __fmul_rn(2.f, atan2f(u, qw));
+    const float scale = u > kEps ? __fmul_rn(theta, rcp(u))
+                                 : __fmul_rn(2.f, rcp(fmaxf(qw, kEps)));
+    const float px = __fmul_rn(scale, qx), py = __fmul_rn(scale, qy),
+                pz = __fmul_rn(scale, qz);
+    const float s2 = fmaf(px, px, fmaf(py, py, fmaf(pz, pz, 1e-24f)));
+    const float s = __fsqrt_rn(s2);
+    // V^-1's coefficient of K^2
+    const float m = fmaxf(__fmul_rn(2.f, u2), kEps);
+    float c = __fmul_rn(fmaf(-__fmul_rn(s, qw), u, m), rcp(__fmul_rn(m, s2)));
+    if (!(s > kEps)) c = fmaf(s2, 1.f / 720.f, 1.f / 12.f);
+    // rho = d - phi x d / 2 + c phi x (phi x d)
+    float e1x, e1y, e1z, e2x, e2y, e2z;
+    cross(px, py, pz, tx, ty, tz, e1x, e1y, e1z);
+    cross(px, py, pz, e1x, e1y, e1z, e2x, e2y, e2z);
+    const float rx = fmaf(c, e2x, fmaf(-0.5f, e1x, tx));
+    const float ry = fmaf(c, e2y, fmaf(-0.5f, e1y, ty));
+    const float rz = fmaf(c, e2z, fmaf(-0.5f, e1z, tz));
+    const float z[6] = {__fmul_rn(rx, w[0]), __fmul_rn(ry, w[1]),
+                        __fmul_rn(rz, w[2]), __fmul_rn(px, w[3]),
+                        __fmul_rn(py, w[4]), __fmul_rn(pz, w[5])};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) acc = fmaf(-z[k], z[k], acc);
+    return acc;
   }
 };
 
@@ -453,9 +565,11 @@ extern "C" {
 int kde_lse_split_cols() { return kSplitCols; }
 
 // Floats a particle's terms take: the scratch `terms` holds
-// point_members * this * n.  manifold 0 is Euclidean(dof), 1 is SE(2).
+// point_members * this * n.  manifold 0 is Euclidean(dof), 1 is SE(2), 2 is
+// SE(3).
 int kde_lse_terms(int manifold, int dof) {
   if (manifold == 1) return dof == 3 ? SE2::kTerms : -1;
+  if (manifold == 2) return dof == 6 ? SE3::kTerms : -1;
   if (manifold == 0 && dof >= 1 && dof <= 8) return dof;
   return -1;
 }
@@ -479,6 +593,10 @@ int kde_lse_launch(int manifold, int dof, const float* points,
     return static_cast<int>(cudaErrorInvalidValue);
   if (manifold == 1 && dof == 3)
     return launch<SE2>(points, query, bw, terms, part_m, part_s, out, q_rows,
+                       n, members, point_members, query_members, bw_members,
+                       stream);
+  if (manifold == 2 && dof == 6)
+    return launch<SE3>(points, query, bw, terms, part_m, part_s, out, q_rows,
                        n, members, point_members, query_members, bw_members,
                        stream);
   if (manifold != 0) return static_cast<int>(cudaErrorInvalidValue);

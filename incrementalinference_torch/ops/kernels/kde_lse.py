@@ -5,10 +5,10 @@ For every member b of a batch and every query row i,
     out[b, i] = logsumexp_j ( -1/2 sum_d ( log_{p_bj}(q_bi)_d / bw_bd )^2 ),
 
 the Gaussian kernels' log-sum at the query on ``Euclidean(d)`` (d up to
-``MAX_DOF``) and on ``SE2``.  ``csrc/kde_lse.cu`` (CUDA C++ for ``sm_90a``)
-streams the kernel particles through shared memory and keeps each pair's log
-map, scaled square and online logsumexp in registers: no (Q, N, dof) tensor,
-no chunks.  It replaces no TPU kernel (the JAX ``kde_logpdf`` reaches no
+``MAX_DOF``), on ``SE2`` and on ``SE3``.  ``csrc/kde_lse.cu`` (CUDA C++ for
+``sm_90a``) streams the kernel particles through shared memory and keeps each
+pair's log map, scaled square and online logsumexp in registers: no (Q, N,
+dof) tensor, no chunks.  It replaces no TPU kernel (the JAX ``kde_logpdf`` reaches no
 ``pl.pallas_call``); its source says what bounds it.
 
 - :func:`manifold_code` says which manifolds the kernel computes;
@@ -17,6 +17,10 @@ no chunks.  It replaces no TPU kernel (the JAX ``kde_logpdf`` reaches no
   chunked eager route for everything else, the CPU included.
 - :func:`kde_row_logsumexp` launches the kernel or raises; it never falls
   back.  It checks device, dtype, shape and contiguity.
+- :func:`se3_log` and :func:`se3_row_logsumexp` are the SE(3) kernel's
+  plain version: its expressions in PyTorch, on any device and dtype, for
+  the tests (``beliefs.kde_logpdf`` reads CPU tensors by its eager chunks,
+  the port's ``SE3.log``).
 - The column split is ``ceil(N / split_cols)`` whatever the query, and the
   splits merge in a second, fixed-order pass: a row gives the same bits
   read alone as in a read of many rows, and two reads give the same bits.
@@ -40,13 +44,16 @@ from ...libcache import Library
 from .row_lse import _NVCC_FLAGS, _nvcc
 
 __all__ = ["kde_row_logsumexp", "manifold_code", "takes", "build", "counts",
-           "reset_counts", "MAX_DOF", "LIBRARY"]
+           "reset_counts", "se3_log", "se3_row_logsumexp", "MAX_DOF",
+           "LIBRARY"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: Euclidean(d) up to this d is a kernel instance
 MAX_DOF = 8
-_EUCLIDEAN, _SE2 = 0, 1
+_EUCLIDEAN, _SE2, _SE3 = 0, 1, 2
+#: lie.py's guard of its small-angle forms and clamps
+_EPS = 1e-8
 
 counts = {"launches": 0, "problems": 0, "calls": 0}
 _COUNTS_LOCK = threading.Lock()
@@ -93,12 +100,14 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 def manifold_code(manifold):
     """(code, dof) of a manifold the kernel computes, else None: its class,
     not a subclass, since a subclass may redefine ``log``."""
-    from ...manifolds import SE2, Euclidean
+    from ...manifolds import SE2, SE3, Euclidean
 
     if type(manifold) is Euclidean and 1 <= manifold.dof <= MAX_DOF:
         return _EUCLIDEAN, manifold.dof
     if type(manifold) is SE2:
         return _SE2, 3
+    if type(manifold) is SE3:
+        return _SE3, 6
     return None
 
 
@@ -197,3 +206,64 @@ def kde_row_logsumexp(manifold, points: torch.Tensor, query: torch.Tensor,
         counts["launches"] += 1
         counts["problems"] += members
     return out.reshape(tuple(lead) + (q_rows,))
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def se3_log(points: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """``log_p(q) = Log(p^-1 o q)`` on SE(3) by the kernel's expressions
+    (``csrc/kde_lse.cu``, ``struct SE3``): the rotation of the translations'
+    difference, the relative quaternion with w >= 0, and V^-1's coefficient
+    from the quaternion's half angle, with ``SE3.log``'s small-angle forms
+    and clamps.  ``points`` and ``query`` (..., 7) broadcast; returns (...,
+    6) in their dtype."""
+    a = torch.cat([points[..., 3:4], -points[..., 4:]], dim=-1)
+    v, b = a[..., 1:], query[..., 3:]
+    d = query[..., :3] - points[..., :3]
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    r = torch.stack([aw * bw - ax * bx - ay * by - az * bz,
+                     aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw], dim=-1)
+    r = torch.where(r[..., :1] < 0, -r, r)
+    qw, q = r[..., :1], r[..., 1:]
+    c1 = _cross(v, d)
+    t = d + 2.0 * (aw[..., None] * c1 + _cross(v, c1))
+    u2 = (q * q).sum(-1, keepdim=True) + 1e-24
+    u = torch.sqrt(u2)
+    theta = 2.0 * torch.atan2(u, qw)
+    scale = torch.where(u > _EPS, theta / u, 2.0 / torch.clamp(qw, min=_EPS))
+    phi = scale * q
+    s2 = (phi * phi).sum(-1, keepdim=True) + 1e-24
+    s = torch.sqrt(s2)
+    m = torch.clamp(2.0 * u2, min=_EPS)
+    c = torch.where(s > _EPS, (m - s * qw * u) / (m * s2),
+                    1.0 / 12.0 + s2 / 720.0)
+    e1 = _cross(phi, t)
+    rho = t - 0.5 * e1 + c * _cross(phi, e1)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_row_logsumexp(points: torch.Tensor, query: torch.Tensor,
+                      bw: torch.Tensor, chunk_pairs: int = 1 << 22
+                      ) -> torch.Tensor:
+    """The kernel's function on SE(3) in plain PyTorch: ``points`` (...,
+    N, 7), ``query`` (..., Q, 7) and ``bw`` (..., 6), leading dimensions
+    broadcast, give (..., Q) logsumexp_j of -1/2 |log_{p_j}(q_i) / bw|^2,
+    in query rows of at most ``chunk_pairs`` pairs of every member."""
+    lead = torch.broadcast_shapes(points.shape[:-2], query.shape[:-2],
+                                  bw.shape[:-1])
+    P, B = points[..., None, :, :], bw[..., None, None, :]
+    step = max(1, chunk_pairs // max(math.prod(lead) * points.shape[-2], 1))
+    out = [torch.logsumexp(-0.5 * ((se3_log(P, query[..., i:i + step, None,
+                                                      :]) / B) ** 2).sum(-1),
+                           dim=-1)
+           for i in range(0, query.shape[-2], step)]
+    return (torch.cat(out, dim=-1) if out
+            else query.new_empty(tuple(lead) + (0,)))

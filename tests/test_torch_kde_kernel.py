@@ -1,8 +1,8 @@
 """The KDE read's kernel (``ops/kernels/kde_lse.py``, ``csrc/kde_lse.cu``)
 and the route ``beliefs.kde_logpdf`` takes to it.
 
-On the CPU: which manifolds and tensors reach the kernel (Euclidean(1..8)
-and SE2, float32 CUDA tensors, no gradient asked; never SE(3), SO(3), the
+On the CPU: which manifolds and tensors reach the kernel (Euclidean(1..8),
+SE2 and SE3, float32 CUDA tensors, no gradient asked; never SO(3), the
 circle, the sphere, a product or a CPU tensor), what each route counts
 (``kde_pairs``, ``kde_eager_pairs``), the wrapper's checks, and the kernel's
 SE(2) arithmetic: its two polynomials, read from the source, against the
@@ -109,7 +109,7 @@ def _reference_log2_weight(q, p, bw):
 @pytest.mark.parametrize("make,code", [
     (lambda: it.Euclidean(1), (0, 1)), (lambda: it.Euclidean(3), (0, 3)),
     (lambda: it.Euclidean(8), (0, 8)), (lambda: it.SE2(), (1, 3)),
-    (lambda: it.Euclidean(9), None), (lambda: it.SE3(), None),
+    (lambda: it.Euclidean(9), None), (lambda: it.SE3(), (2, 6)),
     (lambda: it.SO3(), None), (lambda: it.SO2(), None),
     (lambda: it.Circular.manifold, None), (lambda: manifolds.Sphere2(), None),
     (lambda: manifolds.Product(it.Euclidean(2), it.SO2()), None)],
@@ -165,7 +165,7 @@ def test_the_eager_route_counts_its_pairs():
     snap = tracing.snapshot()
     assert snap["counters"] == {"kde_eager_pairs": 2 * 7 * 40}
     span, = [s for s in snap["spans"] if s["name"] == "kde_logpdf"]
-    assert span["attrs"] == {"N": 40, "Q": 7}
+    assert span["attrs"] == {"N": 40, "Q": 7, "manifold": "SE2"}
     assert span["counts"] == {"kde_eager_pairs": 2 * 7 * 40}
 
 
@@ -175,8 +175,8 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         kde_lse.kde_row_logsumexp(it.SE2(), pts, pts, bw)
     with pytest.raises(ValueError, match="no kernel"):
-        kde_lse.kde_row_logsumexp(it.SE3(), torch.zeros(8, 7),
-                                  torch.zeros(8, 7), torch.ones(6))
+        kde_lse.kde_row_logsumexp(it.SO3(), torch.zeros(8, 4),
+                                  torch.zeros(8, 4), torch.ones(3))
 
 
 @pytest.mark.parametrize("shape,tail,lead,members,copied", [
@@ -457,18 +457,23 @@ def test_counts_and_counters_say_what_ran(card):
     p3 = se3.exp(se3.identity(card)[None].expand(500, -1),
                  0.2 * torch.randn(500, 6, device=card))
     bw3 = torch.full((6,), 0.1, device=card)
+    so3 = it.SO3()
+    q3 = so3.exp(so3.identity(card)[None].expand(300, -1),
+                 0.2 * torch.randn(300, 3, device=card))
+    bwq = torch.full((3,), 0.1, device=card)
     kde_lse.reset_counts()
     with tracing.span("outside"):
         pass
     with profile(activities=[ProfilerActivity.CUDA]):
         beliefs.kde_logpdf(se2, beliefs.Belief(pts, bw, bw), pts[:, :100])
         beliefs.kde_logpdf(se3, beliefs.Belief(p3, bw3, bw3), p3[:40])
+        beliefs.kde_logpdf(so3, beliefs.Belief(q3, bwq, bwq), q3[:20])
         beliefs.kde_logpdf(se2, beliefs.Belief(pts.double(), bw.double(),
                                                bw.double()), pts[:, :5].double())
     snap = tracing.snapshot()
-    assert snap["counters"] == {"kde_pairs": 2 * 100 * 3000,
-                                "kde_eager_pairs": 40 * 500 + 2 * 5 * 3000}
-    assert kde_lse.counts == {"launches": 1, "problems": 2, "calls": 1}
+    assert snap["counters"] == {"kde_pairs": 2 * 100 * 3000 + 40 * 500,
+                                "kde_eager_pairs": 20 * 300 + 2 * 5 * 3000}
+    assert kde_lse.counts == {"launches": 2, "problems": 3, "calls": 2}
     # a strided query is made contiguous by kde_logpdf, refused by the
     # wrapper itself
     q = pts[0].t().contiguous().t()
